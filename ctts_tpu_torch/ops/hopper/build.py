@@ -1,0 +1,134 @@
+"""Build and load the Hopper kernels at first use.
+
+Every ctts_tpu_torch/csrc/*.cu is compiled by nvcc for sm_90a into one
+shared library with a plain C interface, ctts_tpu_torch/_build/
+libctts_hopper.so, rebuilt when a source is newer, and loaded with
+ctypes. No PyTorch headers are included, so a build takes seconds
+(torch.utils.cpp_extension needs ninja and minutes). `--fmad=false`
+keeps every f32 multiply and add separately rounded, as the sample
+lattice requires. A failed build or load raises with nvcc's output;
+nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+from ctts_tpu_torch.env import nvcc_path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_PATH = BUILD_DIR / "libctts_hopper.so"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Launcher signatures (csrc/*.cu): device pointers and the stream are
+# void*, sizes are int; each returns its cudaError_t.
+SIGNATURES = {
+    "ctts_pitch_corr": [_P, _P, _P, _P, _I, _P],
+    "ctts_compose": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _P],
+    "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+class BuildInfo:
+    """What the last build did (read by chip_smoke.py)."""
+
+    seconds: float = 0.0
+    log: str = ""
+    built: bool = False
+
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    t = LIB_PATH.stat().st_mtime
+    return any(s.stat().st_mtime > t for s in CSRC.iterdir())
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into LIB_PATH when it is missing or stale."""
+    if not _stale():
+        return LIB_PATH
+    nvcc = nvcc_path()
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found (looked for {nvcc})")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libctts_hopper.{os.getpid()}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    BuildInfo.seconds = time.perf_counter() - t0
+    BuildInfo.log = r.stdout + r.stderr
+    if r.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc {r.returncode}): {' '.join(cmd)}\n"
+            f"{BuildInfo.log}")
+    os.replace(tmp, LIB_PATH)
+    BuildInfo.built = True
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.ctts_error_string.argtypes = [ctypes.c_int]
+            handle.ctts_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call a launcher on the current stream's arguments; raise on a
+    nonzero cudaError_t (a refused launch never runs and a later
+    synchronize would not report it)."""
+    handle = lib()
+    rc = getattr(handle, name)(*args)
+    if rc != 0:
+        msg = handle.ctts_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def check(t, name: str, dtype, shape: tuple, device) -> None:
+    """Validate a kernel argument before its pointer goes to C."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def stream_handle() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream

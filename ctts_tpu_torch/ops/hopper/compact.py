@@ -1,0 +1,51 @@
+"""Silence-removal compaction: CUDA kernel, plain version, launch count.
+
+Counterpart of ctts_tpu/ops/pallas/compact.py:89 compact_units, batched
+over sentences: inside each region row of the flat [R*WREG] buffer,
+segment s (< NBLK) with seg_len > 0 moves from starts[s] to dst[s]
+(ctts.c:1634-1690); every other position keeps its content. The plain
+version is ops/device_ops.py move_segments over the region rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ctts_tpu_torch.ops import device_ops as dops
+from ctts_tpu_torch.ops.hopper.build import check, launch, stream_handle
+
+KERNEL = "compact"
+SOURCE = "ctts_tpu_torch/csrc/compact.cu"
+REPLACES = "ctts_tpu/ops/pallas/compact.py:89"
+
+launches = 0
+
+
+def compact_plain(bufs, starts, dst, seg_len, WREG: int):
+    B, R, NBLK = starts.shape
+    out = dops.move_segments(bufs.reshape(B * R, WREG),
+                             starts.reshape(B * R, NBLK),
+                             dst.reshape(B * R, NBLK),
+                             seg_len.reshape(B * R, NBLK))
+    return out.reshape(B, R * WREG)
+
+
+def compact(bufs, starts, dst, seg_len, WREG: int):
+    """bufs [B, R*WREG] f32; starts, dst, seg_len [B, R, NBLK] i32
+    (region-local, MARGIN included) -> compacted [B, R*WREG]."""
+    global launches
+    if bufs.device.type == "cpu":
+        return compact_plain(bufs, starts, dst, seg_len, WREG)
+    if bufs.device.type != "cuda":
+        raise ValueError(f"compact: unsupported device {bufs.device}")
+    B, R, NBLK = starts.shape
+    dev = bufs.device
+    check(bufs, "bufs", torch.float32, (B, R * WREG), dev)
+    for name, t in (("starts", starts), ("dst", dst), ("seg_len", seg_len)):
+        check(t, name, torch.int32, (B, R, NBLK), dev)
+    out = torch.empty_like(bufs)
+    launch("ctts_compact", bufs.data_ptr(), out.data_ptr(),
+           starts.data_ptr(), dst.data_ptr(), seg_len.data_ptr(),
+           B, R, WREG, NBLK, stream_handle())
+    launches += 1
+    return out

@@ -1,0 +1,299 @@
+"""Batched serving on one CUDA device: the speed-1.0 production path.
+
+Counterpart of ctts_tpu/parallel/batch.py without the device mesh and
+the wire codec. Texts are lowered on the host (natively through
+libctts.so, or by the Python plan pipeline), grouped into buckets of
+identical PlanDims, stacked, and run through SynthesisCore as one
+batch per bucket. Each batch's valid prefixes are packed into one flat
+int16 buffer on the device, so the host copy is sum(out_len) samples.
+
+Arguments this slice does not serve (speed != 1.0, a mesh, the wire
+codec) raise NotImplementedError; they never run something else.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ctts_tpu.config import CTTSConfig
+from ctts_tpu.db.reader import VoiceDatabase
+from ctts_tpu.plan.compiler import compile_plan
+from ctts_tpu.text.rules import NormalizationRules
+from ctts_tpu_torch.synth.device import (
+    DeviceVoice,
+    SynthesisCore,
+    warn_overflow,
+)
+from ctts_tpu_torch.synth.plan_arrays import (
+    PlanDims,
+    bucket_dims,
+    derive_dims,
+    fill_device_plan,
+    shared_plan_values,
+    walk_plan,
+)
+
+
+def _next_batch_size(n: int, multiple: int) -> int:
+    """Round up to a multiple of 8 (and of `multiple`);
+    ctts_tpu/parallel/batch.py:202."""
+    g = int(8 * multiple // np.gcd(8, multiple))
+    return max(-(-n // g) * g, g)
+
+
+def _check_speed(speed: float) -> None:
+    if np.float32(speed) != np.float32(1.0):
+        raise NotImplementedError(
+            f"speed {speed}: only speed 1.0 is ported to ctts_tpu_torch "
+            "(WSOLA is not)")
+
+
+def pack_rows(out: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
+    """Valid prefixes of out [B, OM] packed back to back into one flat
+    buffer (ctts_tpu/parallel/batch.py:75-100): cumsum offsets and one
+    index scatter; lanes past a row's length go to a dropped slot."""
+    B, OM = out.shape
+    lens = out_lens.long()
+    offs = torch.cumsum(lens, 0) - lens
+    iw = torch.arange(OM, device=out.device)
+    tgt = torch.where(iw[None, :] < lens[:, None], offs[:, None] + iw, B * OM)
+    packed = torch.zeros(B * OM + 1, dtype=out.dtype, device=out.device)
+    packed.scatter_(0, tgt.reshape(-1), out.reshape(-1))
+    return packed[:B * OM]
+
+
+class BatchSynthesizer:
+    """High-throughput batched synthesis on one CUDA device."""
+
+    def __init__(
+        self,
+        db: VoiceDatabase,
+        config: CTTSConfig,
+        rules: Optional[NormalizationRules] = None,
+        mesh=None,
+        target_rms: float = 3000.0,
+        dims_floor: Optional[dict] = None,
+        wire: bool = False,
+        native_plans: bool = True,
+        device: Optional[torch.device] = None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported to ctts_tpu_torch")
+        if wire:
+            raise NotImplementedError(
+                "the wire codec is not ported to ctts_tpu_torch")
+        self.db = db
+        self.config = config
+        self.rules = rules
+        self.dims_floor = dims_floor
+        self.voice = DeviceVoice(db, target_rms, device)
+        self.device = self.voice.device
+        self.core = SynthesisCore(self.voice)
+        self._nl = None
+        if native_plans:
+            from ctts_tpu_torch.plan.native_lower import NativeLowerer
+
+            self._nl = NativeLowerer(db.path, config, rules)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
+    # -- plan side ---------------------------------------------------------
+
+    def compile_plans(self, texts: Sequence[str], speed: float = 1.0):
+        return [compile_plan(self.db, t, self.config, self.rules, speed)
+                for t in texts]
+
+    # -- execution ---------------------------------------------------------
+
+    def synthesize(self, texts: Sequence[str], speed: float = 1.0,
+                   split: bool = True):
+        """Synthesize a batch; returns a list of int16 arrays in input
+        order. Long inputs split at sentence boundaries into rows of the
+        same bucket (plan/split.py) and are concatenated back."""
+        prepared, spans = self._lower_batch(texts, speed, split)
+        return self._finish(self._trim(self._enqueue(prepared)), spans)
+
+    def stream(self, text_batches, speed: float = 1.0, split: bool = True):
+        """Pipelined synthesis over an iterable of text batches
+        (ctts_tpu/parallel/batch.py:363). Per batch N+1:
+          1. lower it on the host while batch N runs on the device;
+          2. trim batch N: sync its out_lens and start the copy of its
+             packed prefix on a side stream;
+          3. enqueue batch N+1;
+          4. hand batch N's drain to a one-worker thread.
+        Yields one list of int16 arrays per input batch, in order."""
+        prev = None      # enqueued-but-untrimmed batch N
+        pending = None   # drain future of batch N-1
+        pool = ThreadPoolExecutor(max_workers=1)
+        try:
+            for texts in text_batches:
+                prepped, spans = self._lower_batch(texts, speed, split)
+                if prev is not None:
+                    trimmed, pspans = self._trim(prev[0]), prev[1]
+                handles = self._enqueue(prepped)
+                if prev is not None:
+                    fut = pool.submit(self._finish, trimmed, pspans)
+                    if pending is not None:
+                        yield pending.result()
+                    pending = fut
+                prev = (handles, spans)
+            if prev is not None:
+                trimmed, pspans = self._trim(prev[0]), prev[1]
+                if pending is not None:
+                    yield pending.result()
+                yield self._finish(trimmed, pspans)
+            elif pending is not None:
+                yield pending.result()
+        finally:
+            pool.shutdown(wait=True)
+
+    def _finish(self, trimmed, spans):
+        outs = self._drain(trimmed)
+        return [outs[s] if e == s + 1 else np.concatenate(outs[s:e])
+                for s, e in spans]
+
+    # -- host lowering -------------------------------------------------------
+
+    def _lower_batch(self, texts, speed: float, split: bool):
+        """(prepared, spans): rows lowered and stacked per bucket, and the
+        [start, end) row range of every input text."""
+        _check_speed(speed)
+        if self._nl is not None:
+            return self._prepare_native(texts, speed, split)
+        plans = self.compile_plans(texts, speed)
+        if split:
+            from ctts_tpu.plan.split import split_plan
+
+            rows, spans = [], []
+            for p in plans:
+                r = split_plan(p, self.db)
+                spans.append((len(rows), len(rows) + len(r)))
+                rows.extend(r)
+        else:
+            rows = plans
+            spans = [(i, i + 1) for i in range(len(plans))]
+        return self._prepare(rows), spans
+
+    def _prepare_native(self, texts, speed: float, split: bool):
+        """Native twin of compile + split + _prepare
+        (ctts_tpu/parallel/batch.py:326): rows are lowered and filled
+        straight into the stacked arrays by libctts.so."""
+        nl = self._nl
+        spans, dims_list, trips = nl.lower(texts, speed, split)
+        buckets = defaultdict(list)
+        for i, d in enumerate(dims_list):
+            buckets[bucket_dims(d, self.dims_floor)].append(i)
+        thr = np.float32(self.config.silence_threshold)
+        per_bucket = []
+        for bd, idxs in buckets.items():
+            n = len(idxs)
+            stacked = nl.alloc_stacked(bd, _next_batch_size(n, 1))
+            for slot, ri in enumerate(idxs):
+                nl.fill_into(ri, bd, stacked, slot)
+            stacked["threshold"][:] = thr
+            stacked["speed"][:] = np.float32(speed)
+            stacked["refine_trips"][:n] = [trips[ri] for ri in idxs]
+            idxs = self._order_and_pad(stacked, n, idxs)
+            shared = shared_plan_values(stacked, self.voice.lengths_np, bd)
+            per_bucket.append((bd, idxs, (n, stacked, shared)))
+        return (len(dims_list), per_bucket), spans
+
+    def _prepare(self, plans):
+        """Python lowering (ctts_tpu/parallel/batch.py:429): walk plans,
+        bucket, stack the filled arrays."""
+        walked = [walk_plan(p, self.db) for p in plans]
+        buckets = defaultdict(list)
+        for i, w in enumerate(walked):
+            bd = bucket_dims(derive_dims(w, self.db), self.dims_floor)
+            buckets[bd].append(i)
+        per_bucket = []
+        for bd, idxs in buckets.items():
+            n = len(idxs)
+            bsz = _next_batch_size(n, 1)
+            stacked = None
+            for slot, i in enumerate(idxs):
+                arrays = fill_device_plan(walked[i], self.db, bd).arrays
+                if stacked is None:
+                    stacked = {k: np.zeros((bsz,) + np.shape(v),
+                                           np.asarray(v).dtype)
+                               for k, v in arrays.items()}
+                for k, v in arrays.items():
+                    stacked[k][slot] = v
+            idxs = self._order_and_pad(stacked, n, idxs)
+            shared = shared_plan_values(stacked, self.voice.lengths_np, bd)
+            per_bucket.append((bd, idxs, (n, stacked, shared)))
+        return len(plans), per_bucket
+
+    def _order_and_pad(self, stacked: dict, n: int, idxs: list) -> list:
+        """Sort the n real rows by descending length and make the pad
+        rows copies of the last one; returns the row ids in slot order."""
+        order = self._length_order(stacked, n)
+        for k in stacked:
+            stacked[k][:n] = stacked[k][order]
+            stacked[k][n:] = stacked[k][n - 1]
+        return [idxs[int(p)] for p in order]
+
+    @staticmethod
+    def _length_order(stacked, n):
+        """Descending per-row output-length order (stable);
+        ctts_tpu/parallel/batch.py:471. Slot renumbering only: rows are
+        independent and map back by id, so bits are unchanged."""
+        key = (stacked["region_len"][:n].sum(axis=1)
+               + stacked["region_pause"][:n].sum(axis=1))
+        return np.argsort(-key, kind="stable")
+
+    # -- device side ---------------------------------------------------------
+
+    def _enqueue(self, prepared):
+        n_rows, per_bucket = prepared
+        return n_rows, [(idxs, self._enqueue_bucket(bd, prep))
+                        for bd, idxs, prep in per_bucket]
+
+    def _enqueue_bucket(self, dims: PlanDims, prep):
+        n, stacked, shared = prep
+        out, out_lens, ovf = self.core(dims, stacked, shared)
+        return n, pack_rows(out, out_lens), out_lens, ovf
+
+    def _trim(self, enqueued):
+        n_rows, per_bucket = enqueued
+        return n_rows, [(idxs, self._trim_bucket(handle))
+                        for idxs, handle in per_bucket]
+
+    def _trim_bucket(self, handle):
+        """Sync the per-row lengths (one small copy), report overflow,
+        then start copying the valid prefix of the packed buffer to
+        pinned host memory on the side stream, so that the copy runs
+        beside the next batch's compute."""
+        n, packed, out_lens, ovf = handle
+        small = torch.stack([out_lens, ovf]).cpu().numpy()
+        warn_overflow(int(small[1].sum()))
+        ends = np.cumsum(small[0][:n].astype(np.int64))
+        total = int(ends[-1])
+        if self._copy_stream is None:
+            return n, packed[:total].numpy().copy(), None, ends
+        host = torch.empty(total, dtype=torch.int16, pin_memory=True)
+        self._copy_stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._copy_stream):
+            host.copy_(packed[:total], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        packed.record_stream(self._copy_stream)
+        return n, host, done, ends
+
+    def _drain(self, trimmed):
+        n_rows, per_bucket = trimmed
+        results: list = [None] * n_rows
+        for idxs, (n, host, done, ends) in per_bucket:
+            if done is not None:
+                done.synchronize()
+                host = host.numpy()
+            for slot in range(n):
+                s = int(ends[slot - 1]) if slot else 0
+                results[idxs[slot]] = host[s:int(ends[slot])].copy()
+        return results

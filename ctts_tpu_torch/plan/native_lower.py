@@ -1,0 +1,264 @@
+"""Native (C++) batch plan lowering: text -> device-plan arrays.
+
+The same ctypes binding as ctts_tpu/plan/native_lower.py to the
+`ctl_*` entry points of ctts_tpu/runtime/libctts.so (the C++ twin of
+compile_plan -> split_plan -> walk_plan -> derive_dims ->
+fill_device_plan), constructing this package's PlanDims so that no
+jax import is needed. Unlike the JAX package's loader, a failed `make`
+or a missing or unloadable library raises (after a few retries that
+cover a concurrent build): a stale library would be wrong in the same
+way for both packages and no parity test would see it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import time
+from typing import Sequence
+
+import numpy as np
+
+import ctts_tpu
+from ctts_tpu.config import CTTSConfig
+from ctts_tpu_torch.synth.plan_arrays import PlanDims
+
+_RUNTIME = os.path.join(os.path.dirname(os.path.abspath(ctts_tpu.__file__)),
+                        "runtime")
+_SO = os.path.join(_RUNTIME, "libctts.so")
+
+
+class _CConfig(ctypes.Structure):
+    """Mirror of CTTSConfig (runtime/include/ctts.h; field order is ABI)."""
+
+    _fields_ = [
+        ("crossfade_ms", ctypes.c_float),
+        ("crossfade_vowel_ms", ctypes.c_float),
+        ("crossfade_s_ending_ms", ctypes.c_float),
+        ("crossfade_r_ending_ms", ctypes.c_float),
+        ("vowel_to_consonant_factor", ctypes.c_float),
+        ("word_pause_ms", ctypes.c_float),
+        ("unknown_silence_ms", ctypes.c_float),
+        ("fade_in_ms", ctypes.c_float),
+        ("fade_out_ms", ctypes.c_float),
+        ("remove_word_silence", ctypes.c_int),
+        ("silence_threshold", ctypes.c_float),
+        ("min_silence_ms", ctypes.c_float),
+        ("remove_dc_offset", ctypes.c_int),
+        ("normalize_level", ctypes.c_float),
+        ("compression", ctypes.c_float),
+        ("default_speed", ctypes.c_float),
+        ("min_speed", ctypes.c_float),
+        ("max_speed", ctypes.c_float),
+        ("max_pitch_change", ctypes.c_float),
+        ("print_units", ctypes.c_int),
+        ("print_timing", ctypes.c_int),
+    ]
+
+
+# Field manifest, in the exact pointer order ctl_fill_row consumes.
+# shape key: "U" | "R" | "R5" | "FD" | "NSHIFT".
+_MANIFEST = [
+    ("unit_id", "U", np.int32),
+    ("unit_region", "U", np.int32),
+    ("unit_off", "U", np.int32),
+    ("unit_boundary", "U", np.int32),
+    ("unit_cf_in", "U", np.int32),
+    ("unit_fade_in", "U", np.bool_),
+    ("unit_smooth", "U", np.bool_),
+    ("unit_analysis", "U", np.int32),
+    ("unit_boundary_len", "U", np.int32),
+    ("unit_shift_region", "U", np.int32),
+    ("unit_prev_ok", "U", np.bool_),
+    ("region_len", "R", np.int32),
+    ("region_do_dsp", "R", np.bool_),
+    ("region_remove", "R", np.bool_),
+    ("region_pause", "R", np.int32),
+    ("region_fade_after", "R", np.int32),
+    ("region_contour", "R5", np.float32),
+    ("region_qfinal", "R", np.bool_),
+    ("region_energy", "R", np.bool_),
+    ("region_active", "R", np.bool_),
+    ("fade_region", "FD", np.int32),
+    ("fade_pos", "FD", np.int32),
+    ("fade_len", "FD", np.int32),
+    ("shift_slots", "NSHIFT", np.int32),
+]
+
+
+def _shape_of(key: str, dims: PlanDims) -> tuple:
+    if key == "U":
+        return (dims.U,)
+    if key == "R":
+        return (dims.R,)
+    if key == "R5":
+        return (dims.R, 5)
+    if key == "FD":
+        return (dims.FD,)
+    return (dims.NSHIFT,)
+
+
+_lib = None
+_BUILD_ATTEMPTS = 3
+
+
+def _make_and_open() -> ctypes.CDLL:
+    """make (dependency-checked: a no-op when current), then dlopen.
+    Another process may be writing libctts.so at the same moment (the
+    JAX package runs the same make), which shows as a failed make or an
+    unloadable file; that is retried a few times, then raised with
+    make's output."""
+    for attempt in range(_BUILD_ATTEMPTS):
+        r = subprocess.run(["make", "-C", _RUNTIME, "libctts.so"],
+                           capture_output=True, text=True)
+        err = f"make libctts.so: rc {r.returncode}\n{r.stdout}{r.stderr}"
+        if r.returncode == 0:
+            try:
+                return ctypes.CDLL(_SO)
+            except OSError as e:
+                err += f"\nloading {_SO}: {e}"
+        if attempt == _BUILD_ATTEMPTS - 1:
+            raise RuntimeError(err)
+        time.sleep(2.0)
+
+
+def _load():
+    """Build and load libctts.so once; raises on any failure."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = _make_and_open()
+    lib.ctl_open.restype = ctypes.c_void_p
+    lib.ctl_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(_CConfig)]
+    lib.ctl_close.restype = None
+    lib.ctl_close.argtypes = [ctypes.c_void_p]
+    lib.ctl_begin.restype = None
+    lib.ctl_begin.argtypes = [ctypes.c_void_p]
+    lib.ctl_add_text.restype = ctypes.c_int32
+    lib.ctl_add_text.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_float, ctypes.c_int32,
+    ]
+    lib.ctl_row_count.restype = ctypes.c_int32
+    lib.ctl_row_count.argtypes = [ctypes.c_void_p]
+    lib.ctl_row_dims.restype = ctypes.c_int32
+    lib.ctl_row_dims.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.ctl_fill_row.restype = ctypes.c_int32
+    lib.ctl_fill_row.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_void_p),
+    ]
+    lib.ctl_set_rules.restype = ctypes.c_int32
+    lib.ctl_set_rules.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.c_char_p),
+    ]
+    _lib = lib
+    return _lib
+
+
+class NativeLowerer:
+    """One native lowering handle per synthesizer (not thread-safe)."""
+
+    def __init__(self, db_path: str, config: CTTSConfig, rules=None):
+        lib = _load()
+        self._lib = lib
+        cc = _CConfig()
+        for name, ctype in _CConfig._fields_:
+            v = getattr(config, name)
+            setattr(cc, name, int(v) if ctype is ctypes.c_int else float(v))
+        self._h = lib.ctl_open(db_path.encode(), ctypes.byref(cc))
+        if not self._h:
+            raise RuntimeError(f"ctl_open failed for {db_path}")
+        if rules is not None and rules.rules:
+            pats = [r.posix for r in rules.rules]
+            reps = [r.replace for r in rules.rules]
+            if any(p is None for p in pats):
+                raise RuntimeError(
+                    "rules lack POSIX patterns (hand-built NormRule?)")
+            rc = lib.ctl_set_rules(
+                self._h, len(pats),
+                (ctypes.c_char_p * len(pats))(*pats),
+                (ctypes.c_char_p * len(reps))(*reps),
+            )
+            if rc != 0:
+                raise RuntimeError(
+                    f"ctl_set_rules failed (rc {rc}): a pattern was "
+                    "rejected by host regcomp")
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.ctl_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+    def lower(self, texts: Sequence[str | bytes], speed: float,
+              split: bool):
+        """Compile + split + walk a text batch.
+
+        Returns (spans, dims_list, refine_trips) where spans[i] is the
+        [start, end) row range of input i, dims_list[r] the per-row
+        derived PlanDims (pre-bucket), refine_trips[r] the per-row
+        fixed-point trip count. Rows stay resident in the handle until
+        the next lower() call; fill_into() reads them by index.
+        """
+        lib = self._lib
+        lib.ctl_begin(self._h)
+        spans = []
+        start = 0
+        for t in texts:
+            b = t.encode("utf-8") if isinstance(t, str) else bytes(t)
+            n = lib.ctl_add_text(self._h, b, len(b),
+                                 ctypes.c_float(speed),
+                                 1 if split else 0)
+            if n < 0:
+                raise RuntimeError(f"ctl_add_text failed: {n}")
+            spans.append((start, start + n))
+            start += n
+        out = (ctypes.c_int32 * 21)()
+        dims_list, trips = [], []
+        for r in range(start):
+            if lib.ctl_row_dims(self._h, r, out) != 0:
+                raise RuntimeError("ctl_row_dims failed")
+            o = list(out)
+            dims_list.append(PlanDims(
+                U=o[0], R=o[1], FD=o[2], NSHIFT=o[3], WREG=o[4],
+                MARGIN=o[5], UBUF=o[6], WIN=o[7], CFMAX=o[8], SMAX=o[9],
+                OMAX=o[10], CONTW=o[11], FADEW=o[12], FADE2W=o[13],
+                fade_in_samples=o[14], min_silence_samples=o[15],
+                remove_dc=bool(o[16]), stretch=bool(o[17]),
+                synth_hop=o[18], contour_drift=o[19],
+            ))
+            trips.append(o[20])
+        return spans, dims_list, trips
+
+    def alloc_stacked(self, dims: PlanDims, bsz: int) -> dict:
+        """Batch-stacked arrays in the manifest layout plus the three
+        scalar fields, uninitialized where every slot is written."""
+        stacked = {
+            name: np.empty((bsz,) + _shape_of(key, dims), dt)
+            for name, key, dt in _MANIFEST
+        }
+        stacked["threshold"] = np.empty(bsz, np.float32)
+        stacked["speed"] = np.empty(bsz, np.float32)
+        stacked["refine_trips"] = np.empty(bsz, np.int32)
+        return stacked
+
+    def fill_into(self, row: int, dims: PlanDims, stacked: dict,
+                  slot: int) -> None:
+        """Fill one lowered row into batch slot `slot` (bucketed dims)."""
+        bd = (ctypes.c_int32 * 8)(dims.U, dims.R, dims.FD, dims.NSHIFT,
+                                  dims.MARGIN, dims.UBUF, dims.CONTW,
+                                  dims.FADEW)
+        ptrs = (ctypes.c_void_p * len(_MANIFEST))(*[
+            stacked[name].ctypes.data + slot * stacked[name].strides[0]
+            for name, _, _ in _MANIFEST
+        ])
+        rc = self._lib.ctl_fill_row(self._h, row, bd, ptrs)
+        if rc != 0:
+            raise RuntimeError(f"ctl_fill_row failed: {rc} (row {row})")

@@ -1,0 +1,514 @@
+"""The synthesis core in PyTorch: plan arrays in, int16 audio out.
+
+Counterpart of ctts_tpu/synth/device.py: `DeviceVoice` (:588) holds the
+voice bank on the device, `SynthesisCore` runs build_core's
+speed-1.0 pipeline (:648-1652, the compose_refine=True, stretch=False
+branch) on a batch of lowered plans, and `execute_plan_torch` (:1660)
+is the single-sentence entry. The batch is an explicit leading
+dimension; the JAX scans and while-loops are Python loops over batched
+tensors. The four Pallas kernels of the path are the Hopper kernels of
+ops/hopper (on a CPU device their plain versions run).
+
+Stage order (JAX line numbers): prepare_base and the DC/fade chain of
+make_contrib_fn (761-918); head pitch (1070-1084); the refine loop of
+compose + boundary_heads (920-1030, 1212-1223); the final compose
+(1223); in-region tail fades (1250-1268); silence tables (1276-1300);
+compaction (1302-1320); contour, the interrogative fall and
+region_post (1338-1595); assembly, q16 and the length mask (1599-1635);
+int16 out (1650).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ctts_tpu.db.reader import VoiceDatabase
+from ctts_tpu.plan.compiler import SynthesisPlan
+from ctts_tpu_torch.ops import device_ops as dops
+from ctts_tpu_torch.ops.exact import sqrt_rn
+from ctts_tpu_torch.ops.hopper.assemble import assemble
+from ctts_tpu_torch.ops.hopper.compact import compact
+from ctts_tpu_torch.ops.hopper.compose import compose
+from ctts_tpu_torch.ops.luts import fade_in_gain, fade_out_gain, sine_fade_gain
+from ctts_tpu_torch.ops.quant import q16, trunc16
+from ctts_tpu_torch.synth.plan_arrays import (
+    PlanDims,
+    bucket_dims,
+    derive_dims,
+    fill_device_plan,
+    shared_plan_values,
+    walk_plan,
+)
+
+F32 = torch.float32
+
+
+def exact_gains(db: VoiceDatabase, target_rms: float) -> np.ndarray:
+    """normalize_rms gains (ctts.c:1709-1727), exact on the host with
+    f64 accumulation like the C's double (ctts_tpu/synth/device.py:599)."""
+    n = db.unit_count
+    gains = np.ones(n, np.float32)
+    for i in range(n):
+        s = db.unit_samples(i).astype(np.float64)
+        if s.shape[0] == 0:
+            continue
+        rms = np.float32(np.sqrt(np.sum(s * s) / s.shape[0]))
+        if rms < np.float32(1.0):
+            continue
+        g = np.float32(target_rms) / rms
+        gains[i] = min(max(g, np.float32(0.1)), np.float32(3.0))
+    return gains
+
+
+class DeviceVoice:
+    """Device-resident voice bank: padded units [N, UBUF] f32, lengths
+    [N] i32 and exact RMS gains [N] f32 (ctts_tpu/synth/device.py:588).
+    `lengths_np` keeps a host copy for the batch-global value tables."""
+
+    def __init__(self, db: VoiceDatabase, target_rms: float = 3000.0,
+                 device: Optional[torch.device] = None):
+        units, lengths = db.to_device_arrays()
+        self._set(units.astype(np.float32), lengths.astype(np.int32),
+                  exact_gains(db, target_rms), device)
+
+    @classmethod
+    def from_numpy(cls, bank: np.ndarray, lengths: np.ndarray,
+                   gains: np.ndarray,
+                   device: Optional[torch.device] = None) -> "DeviceVoice":
+        """From host arrays, e.g. a JAX DeviceVoice's np.asarray(...)."""
+        voice = cls.__new__(cls)
+        voice._set(np.asarray(bank, np.float32),
+                   np.asarray(lengths, np.int32),
+                   np.asarray(gains, np.float32), device)
+        return voice
+
+    def _set(self, bank, lengths, gains, device):
+        if device is None:
+            from ctts_tpu_torch.env import device as cuda_device
+
+            device = cuda_device()
+        self.device = torch.device(device)
+        self.bank = torch.tensor(bank, device=self.device)
+        self.lengths = torch.tensor(lengths, device=self.device)
+        self.gains = torch.tensor(gains, device=self.device)
+        self.lengths_np = lengths
+        self.ubuf = bank.shape[1]
+
+
+def _upload(v: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array to the device without a stream sync (pinned copy)."""
+    t = torch.from_numpy(np.ascontiguousarray(v))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, dim=-1) - x
+
+
+class SynthesisCore(nn.Module):
+    """The speed-1.0 synthesis core over a batch of lowered plans.
+
+    forward(dims, arrays, shared) takes the batch-stacked host arrays of
+    fill_device_plan / the native lowerer ([B, ...] numpy) and the
+    batch-global value tables of shared_plan_values, uploads them, and
+    returns (out [B, SMAX] int16, out_len [B] i32, ovf [B] i32) on the
+    voice's device, all enqueued without a host sync. Control that the
+    JAX core derives on the device but that only depends on the plan
+    (refine trip count, which regions carry DSP, qfinal or tail fades)
+    is read from the host arrays instead."""
+
+    def __init__(self, voice: DeviceVoice):
+        super().__init__()
+        self.register_buffer("bank", voice.bank)
+        self.register_buffer("lengths", voice.lengths)
+        self.register_buffer("gains", voice.gains)
+        self.ubuf = voice.ubuf
+
+    @torch.no_grad()
+    def forward(self, dims: PlanDims, arrays: dict, shared: dict):
+        if dims.stretch:
+            raise NotImplementedError(
+                "speed != 1.0 (WSOLA) is not ported to ctts_tpu_torch")
+        if not dims.compose_refine:
+            raise NotImplementedError(
+                "only the refine compose (compose_refine=True) is ported")
+        dev = self.bank.device
+        ar = {k: _upload(v, dev) for k, v in arrays.items()}
+        ar.update({k: _upload(v, dev) for k, v in shared.items()})
+
+        uid = ar["unit_id"].long()
+        ar["_active"] = uid >= 0
+        ar["_uid"] = torch.clamp(uid, min=0)
+        ar["_n"] = torch.where(ar["_active"], self.lengths[ar["_uid"]],
+                               0).long()
+
+        base, fo, fi = self._prepare_base(dims, ar)
+        ar["_next_pitch"] = self._head_pitch(dims, ar, base)
+        contrib_fn = self._make_contrib_fn(dims, ar, base, fi)
+
+        # Fixed-point compose: each trip re-derives the unit heads from
+        # the exported analysis windows; a row stops updating once its
+        # own trip count is reached (the vmapped while_loop's select).
+        heads = base[:, :, :dims.CFMAX]
+        trips = ar["refine_trips"].long()
+        for it in range(int(np.max(arrays["refine_trips"], initial=0))):
+            _, seg, tail = self._compose(dims, ar, contrib_fn(heads), fo,
+                                         True)
+            new = self._boundary_heads(dims, ar, base, seg, tail)
+            heads = torch.where((it < trips)[:, None, None], new, heads)
+        bufs, _, _ = self._compose(dims, ar, contrib_fn(heads), fo, False)
+
+        bufs = self._tail_fades(dims, ar, arrays, bufs)
+        starts, dst, seg_lens, comp_lens, ovf = self._seg_tables(
+            dims, ar, bufs)
+        bufs = compact(bufs, starts, dst, seg_lens, dims.WREG)
+        bufs = bufs.reshape(-1, dims.R, dims.WREG)
+        bufs = self._contour(dims, ar, arrays, bufs, comp_lens)
+        bufs = self._region_post(dims, ar, arrays, bufs, comp_lens)
+        out, total_len = self._assemble(dims, ar, bufs, comp_lens)
+        return out.to(torch.int16), total_len.to(torch.int32), ovf
+
+    # -- bank pick and crossfade curves (device.py:761-812) ---------------
+
+    def _prepare_base(self, dims, ar):
+        """base[b, k] = q16(bank[uid] * gain[uid]) [B, U, UBUF] and the
+        trip-invariant crossfade curves fo, fi [B, U, CFMAX], evaluated
+        once per distinct crossfade length of the batch (cf_values) and
+        picked per unit."""
+        uid = ar["_uid"]
+        base = q16(self.bank[uid] * self.gains[uid][..., None])
+        it = torch.arange(dims.CFMAX, device=base.device).to(F32)
+        cfv = ar["cf_values"].long()
+        tmixv = it[None, :] * (1.0 / torch.clamp(cfv, min=1).to(F32))[:, None]
+        pick = self._value_index(torch.clamp(ar["unit_cf_in"].long(), min=1),
+                                 cfv)
+        return base, fade_out_gain(tmixv)[pick], fade_in_gain(tmixv)[pick]
+
+    @staticmethod
+    def _value_index(v: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        """Index of each v in the deduped value table (exactly one hit;
+        the table's 0 padding never matches)."""
+        return (v[..., None] == values).to(torch.int32).argmax(-1)
+
+    # -- head pitch (device.py:1054-1084) ----------------------------------
+
+    def _shift_rows(self, ar):
+        """Candidate-slot picks of device.py:1054-1068: rows of a [B, U,
+        ...] tensor at shift_slots, zeros for empty slots."""
+        ss = ar["shift_slots"].long()
+        live = ss >= 0
+        si = torch.clamp(ss, min=0)
+        bi = torch.arange(ss.shape[0], device=ss.device)[:, None]
+
+        def pick(m):
+            v = m[bi, si]
+            mask = live.reshape(live.shape + (1,) * (v.dim() - 2))
+            return torch.where(mask, v, torch.zeros((), dtype=v.dtype,
+                                                    device=v.device))
+
+        return ss, live, pick
+
+    def _head_pitch(self, dims, ar, base):
+        """Pitch of each candidate unit's head, scattered to [B, U]
+        (non-candidates read 0; their smoothing gate is off)."""
+        ss, live, pick = self._shift_rows(ar)
+        B, NS = ss.shape
+        cand = dops.estimate_pitch_batch(
+            pick(base[:, :, :dops.PITCH_SPAN]).reshape(B * NS, -1),
+            pick(ar["unit_analysis"]).reshape(-1)).reshape(B, NS)
+        return self._scatter_slots(dims, ss, live, cand)
+
+    @staticmethod
+    def _scatter_slots(dims, ss, take, vals):
+        """[B, NS, ...] candidate values back to [B, U, ...] at ss where
+        `take`; zeros elsewhere."""
+        B = ss.shape[0]
+        tgt = torch.where(take, ss, dims.U)              # U: dummy slot
+        out = torch.zeros((B, dims.U + 1) + vals.shape[2:], dtype=vals.dtype,
+                          device=vals.device)
+        idx = tgt.reshape(tgt.shape + (1,) * (vals.dim() - 2)).expand(
+            vals.shape)
+        out.scatter_(1, idx, vals)
+        return out[:, :dims.U]
+
+    # -- contributions (make_contrib_fn, device.py:841-918) ----------------
+
+    def _make_contrib_fn(self, dims, ar, base, fi):
+        """Per-unit contributions [B, U, UBUF] from the current heads:
+        everything past the first CFMAX columns is trip-invariant except
+        the scalar DC shift, so only the head chain is recomputed."""
+        CFMAX, UBUF = dims.CFMAX, self.ubuf
+        dev = base.device
+        n = ar["_n"][..., None]
+        active = ar["_active"][..., None]
+        cf_in = ar["unit_cf_in"].long()[..., None]
+        fade_in = ar["unit_fade_in"][..., None]
+        iu = torch.arange(UBUF, device=dev)
+        ih = torch.arange(CFMAX, device=dev)
+        body = (iu >= CFMAX) & (iu < n)
+        tail_total = torch.where(body, base, 0.0).to(torch.int32).sum(-1)
+
+        FW = min(-(-dims.fade_in_samples // 128) * 128, CFMAX)
+        ifw = torch.arange(FW, device=dev)
+        fade = torch.clamp(n, max=dims.fade_in_samples)          # [B, U, 1]
+        fv = ar["fade_values"].long()
+        tfv = ifw.to(F32)[None, :] * (
+            1.0 / torch.clamp(fv, min=1).to(F32))[:, None]
+        fade_gain = sine_fade_gain(tfv)[
+            self._value_index(torch.clamp(fade[..., 0], min=1), fv)]
+        in_fade = (ifw < fade) & (fade > 0)
+        live_h = ih < n
+        keep_h = live_h & active
+        mix_h = (ih < cf_in) & ~fade_in
+        body_live = body & active
+
+        def contrib_fn(heads):
+            head_total = torch.where(live_h, heads, 0.0).to(
+                torch.int32).sum(-1)
+            total = head_total + tail_total
+            dc = torch.sign(total) * torch.div(
+                torch.abs(total), torch.clamp(n[..., 0], min=1),
+                rounding_mode="floor")
+            dcf = dc.to(F32)[..., None]
+            xh = torch.where(live_h, torch.clamp(heads - dcf, -32768.0,
+                                                 32767.0), heads)
+            hf = xh[..., :FW]
+            hf = torch.where(in_fade, trunc16(hf * fade_gain), hf)
+            xh = torch.where(fade_in, torch.cat([hf, xh[..., FW:]], -1), xh)
+            xh = torch.where(mix_h, xh * fi, xh)
+            xh = torch.where(keep_h, xh, 0.0)
+            out = torch.where(body_live, torch.clamp(base - dcf, -32768.0,
+                                                     32767.0), 0.0)
+            out[..., :CFMAX] = xh
+            return out
+
+        return contrib_fn
+
+    # -- placement (compose kernel, device.py:1086-1113) -------------------
+
+    def _compose(self, dims, ar, contrib, fo, export):
+        base_off = (ar["unit_region"] * dims.WREG + ar["unit_off"]).to(
+            torch.int32)
+        n_eff = ar["_n"].to(torch.int32)
+        return compose(contrib.contiguous(), fo.contiguous(),
+                       base_off.contiguous(),
+                       ar["unit_cf_in"].to(torch.int32).contiguous(),
+                       n_eff.contiguous(),
+                       ar["unit_analysis"].to(torch.int32).contiguous(),
+                       dims.R * dims.WREG, export)
+
+    # -- boundary DSP (boundary_heads, device.py:920-1030) -----------------
+
+    def _boundary_heads(self, dims, ar, base, seg, tail):
+        """smooth_pitch_boundary + match_boundary_energy on the unit
+        heads, from the exported pre-merge windows."""
+        CFMAX = dims.CFMAX
+        ss, live, pick = self._shift_rows(ar)
+        B, NS = ss.shape
+        prev_p = dops.estimate_pitch_batch(
+            pick(seg[:, :, :dops.PITCH_SPAN]).reshape(B * NS, -1),
+            pick(ar["unit_analysis"]).reshape(-1)).reshape(B, NS)
+        next_p = pick(ar["_next_pitch"])
+        sr_c = pick(ar["unit_shift_region"])
+        voiced = (prev_p > 0) & (next_p > 0)
+        ratio = next_p / torch.where(prev_p > 0, prev_p, 1.0)
+        jump = (ratio > 1.15) | (ratio < 0.85)
+        target = torch.where(ratio > 1.0, 1.0 + (ratio - 1.0) * 0.5,
+                             1.0 - (1.0 - ratio) * 0.5)
+        factor = target / torch.where(ratio != 0, ratio, 1.0)
+        shifted = dops.pitch_shift_blend(
+            pick(base[:, :, :CFMAX]).reshape(B * NS, CFMAX),
+            sr_c.reshape(-1), factor.reshape(-1)).reshape(B, NS, CFMAX)
+        use = live & voiced & jump & (sr_c > 0)
+        shifted_u = self._scatter_slots(dims, ss, use, shifted)
+        use_u = self._scatter_slots(dims, ss, use, use)
+
+        it = torch.arange(CFMAX, device=base.device)
+        head = base[:, :, :CFMAX]
+        sr = ar["unit_shift_region"].long()[..., None]
+        head = torch.where((it < sr) & use_u[..., None], shifted_u, head)
+
+        blen = ar["unit_boundary_len"].long()
+        blen_f = torch.clamp(blen, min=1).to(F32)
+        tail_live = it >= (CFMAX - blen[..., None])
+        prev_rms = sqrt_rn(
+            torch.where(tail_live, tail * tail, 0.0).sum(-1) / blen_f)
+        next_rms = sqrt_rn(
+            torch.where(it < blen[..., None], head * head, 0.0).sum(-1)
+            / blen_f)
+        eratio = torch.clamp(
+            prev_rms / torch.where(next_rms > 0, next_rms, 1.0), 0.5, 2.0)
+        tgain = it.to(F32) / blen_f[..., None]
+        egain = eratio[..., None] * (1.0 - tgain) + tgain
+        do_boundary = ar["unit_smooth"] & (ar["unit_boundary"] > 0)
+        do_energy = (do_boundary & (blen > 0) & (prev_rms >= 1.0)
+                     & (next_rms >= 1.0))
+        return torch.where((it < blen[..., None]) & do_energy[..., None],
+                           q16(head * egain), head)
+
+    # -- in-region tail fades (device.py:1238-1268) -------------------------
+
+    def _tail_fades(self, dims, ar, arrays, bufs):
+        """Punctuation fades as FADEW-wide window patches, in slot order."""
+        flat = bufs
+        jf = torch.arange(dims.FADEW, device=flat.device)
+        for k in range(dims.FD):
+            if not (arrays["fade_pos"][:, k] >= 0).any():
+                continue
+            fpos = ar["fade_pos"][:, k].long()
+            pos = dims.MARGIN + torch.clamp(fpos, min=0)
+            flen = torch.minimum(ar["fade_len"][:, k].long(), pos)
+            foff = ar["fade_region"][:, k].long() * dims.WREG + pos - dims.FADEW
+            idx = foff[:, None] + jf
+            win = flat.gather(1, idx)
+            rel = (jf[None, :] - (dims.FADEW - flen[:, None])).to(F32)
+            t = (flen.to(F32)[:, None] - rel) * (
+                1.0 / torch.clamp(flen, min=1).to(F32))[:, None]
+            live = (fpos >= 0) & (flen > 0)
+            in_fade = (jf[None, :] >= dims.FADEW - flen[:, None]) & live[:, None]
+            flat = flat.scatter(1, idx, torch.where(
+                in_fade, trunc16(win * sine_fade_gain(t)), win))
+        return flat
+
+    # -- silence tables (device.py:1272-1300) -------------------------------
+
+    def _seg_tables(self, dims, ar, bufs):
+        """Kept-segment tables per region; returns (starts, dst, seg_len
+        [B, R, NBLK] i32 with MARGIN included, compacted lengths [B, R],
+        overflow count [B])."""
+        B, R, M = bufs.shape[0], dims.R, dims.MARGIN
+        content = bufs.reshape(B * R, dims.WREG)[:, M:M + dims.CONTW]
+        thr = ar["threshold"][:, None].expand(B, R).reshape(-1)
+        length = ar["region_len"].reshape(-1)
+        starts, seg_len, new_len, ovf = dops.silence_segments(
+            content, length, thr, dims.min_silence_samples)
+        remove = ar["region_remove"].reshape(-1)
+        starts = torch.where(remove[:, None], starts, 0)
+        seg_len = torch.where(remove[:, None], seg_len, 0)
+        new_len = torch.where(remove, new_len, length.long())
+        dst = M + _excl_cumsum(seg_len)
+        ovf_count = (ovf & remove).reshape(B, R).sum(1).to(torch.int32)
+
+        def table(x):
+            return x.reshape(B, R, dops.NBLK).to(torch.int32).contiguous()
+
+        return (table(starts + M), table(dst), table(seg_len),
+                new_len.reshape(B, R), ovf_count)
+
+    # -- contour + interrogative fall (device.py:1324-1565) -----------------
+
+    def _contour(self, dims, ar, arrays, bufs, comp_lens):
+        """Phrase-intonation pitch contour on each DSP region's content
+        (the rise segment of a split question), then the interrogative
+        fall on the question-final regions."""
+        B, R, M, W = bufs.shape[0], dims.R, dims.MARGIN, dims.CONTW
+        max_frames = max((W - 256) // 128 + 2, 1)
+        rows = bufs.reshape(B * R, dims.WREG)
+        contour = ar["region_contour"].reshape(B * R, 5)
+        lens = comp_lens.reshape(-1)
+        qfinal = ar["region_qfinal"].reshape(-1)
+
+        sel = np.flatnonzero(arrays["region_do_dsp"].reshape(-1))
+        if sel.size:
+            idx = torch.as_tensor(sel, device=bufs.device)
+            cnt = lens[idx]
+            c = contour[idx]
+            rise = (cnt.to(F32) * 0.6).to(torch.int64)
+            split = qfinal[idx] & (rise > 100) & (cnt - rise > 100)
+            new = dops.contour_segment(
+                rows[idx, M:M + W], torch.zeros_like(cnt),
+                torch.where(split, rise, cnt), c[:, 0],
+                torch.where(split, c[:, 2], c[:, 1]), max_frames)
+            rows[idx, M:M + W] = new
+
+        qf = (arrays["region_qfinal"] & arrays["region_do_dsp"]
+              & arrays["region_active"]).reshape(-1)
+        sel = np.flatnonzero(qf)
+        if sel.size:
+            idx = torch.as_tensor(sel, device=bufs.device)
+            cnt = lens[idx]
+            c = contour[idx]
+            rise = (cnt.to(F32) * 0.6).to(torch.int64)
+            split = (rise > 100) & (cnt - rise > 100)
+            new = dops.contour_segment(
+                rows[idx, M:M + W], rise, torch.where(split, cnt - rise, 0),
+                c[:, 2], c[:, 1], max_frames)
+            rows[idx, M:M + W] = new
+        return rows.reshape(B, R, dims.WREG)
+
+    # -- region_post (device.py:1567-1593) ----------------------------------
+
+    def _region_post(self, dims, ar, arrays, bufs, comp_lens):
+        """Energy ramp (ctts.c:2841-2865) and the region tail fade."""
+        B, R, M, W = bufs.shape[0], dims.R, dims.MARGIN, dims.CONTW
+        rows = bufs.reshape(B * R, dims.WREG)
+        lens = comp_lens.reshape(-1)
+        sel = np.flatnonzero((arrays["region_do_dsp"]
+                              & arrays["region_energy"]).reshape(-1))
+        if sel.size:
+            idx = torch.as_tensor(sel, device=bufs.device)
+            cnt = lens[idx][:, None]
+            c = ar["region_contour"].reshape(B * R, 5)[idx]
+            es, ee = c[:, 3:4], c[:, 4:5]
+            content = rows[idx, M:M + W]
+            ic = torch.arange(W, device=bufs.device)
+            te = ic.to(F32)[None, :] / torch.clamp(cnt - 1, min=1).to(F32)
+            ramped = q16(content * (es + (ee - es) * te))
+            apply = (ic[None, :] < cnt) & (cnt >= 100)
+            rows[idx, M:M + W] = torch.where(apply, ramped, content)
+        sel = np.flatnonzero(arrays["region_fade_after"].reshape(-1) > 0)
+        if sel.size:
+            idx = torch.as_tensor(sel, device=bufs.device)
+            rows[idx, M:M + W] = dops.tail_fade_window(
+                rows[idx, M:M + W], lens[idx],
+                ar["region_fade_after"].reshape(-1)[idx], dims.FADE2W)
+        return rows.reshape(B, R, dims.WREG)
+
+    # -- assembly (device.py:1596-1635) -------------------------------------
+
+    def _assemble(self, dims, ar, bufs, comp_lens):
+        active = ar["region_active"]
+        new_lens = torch.where(active, comp_lens, 0)
+        pauses = torch.where(active, ar["region_pause"].long(), 0)
+        seg_lens = new_lens + pauses
+        offsets = _excl_cumsum(seg_lens)
+        total_len = seg_lens.sum(1)
+        live_len = torch.where(active, dims.MARGIN + new_lens, 0)
+        B = bufs.shape[0]
+        sent = assemble(bufs.reshape(B, dims.R * dims.WREG),
+                        offsets.to(torch.int32).contiguous(),
+                        live_len.to(torch.int32).contiguous(),
+                        dims.WREG, dims.MARGIN + dims.SMAX)[:, dims.MARGIN:]
+        ii = torch.arange(dims.SMAX, device=bufs.device)
+        sent = q16(torch.where(ii[None, :] < total_len[:, None], sent, 0.0))
+        return sent, total_len
+
+
+def warn_overflow(n_ovf: int) -> None:
+    """Surface silence-table overflow (no silent caps)."""
+    if n_ovf > 0:
+        print(f"ctts_tpu_torch: {n_ovf} region(s) exceeded the "
+              f"{dops.NBLK}-segment silence table; remainder kept "
+              "uncompacted", file=sys.stderr)
+
+
+def execute_plan_torch(plan: SynthesisPlan, db: VoiceDatabase,
+                       voice: Optional[DeviceVoice] = None) -> np.ndarray:
+    """Single-sentence entry: lower into a bucket, run, trim, int16
+    (ctts_tpu/synth/device.py:1660 execute_plan_jax)."""
+    if voice is None:
+        voice = DeviceVoice(db, plan.target_rms)
+    w = walk_plan(plan, db)
+    dplan = fill_device_plan(w, db, bucket_dims(derive_dims(w, db)))
+    arrays = {k: np.asarray(v)[None] for k, v in dplan.arrays.items()}
+    shared = shared_plan_values(dplan.arrays, voice.lengths_np, dplan.dims)
+    out, out_len, ovf = SynthesisCore(voice)(dplan.dims, arrays, shared)
+    warn_overflow(int(ovf.sum()))
+    return out[0, :int(out_len[0])].cpu().numpy()

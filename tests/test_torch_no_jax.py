@@ -1,0 +1,29 @@
+"""ctts_tpu_torch must import on a machine without JAX.
+
+A fresh interpreter imports every module of the package and
+chip_smoke.py, and jax must not have been loaded by any of them."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, pkgutil, sys
+import ctts_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ctts_tpu_torch.__path__,
+                                               "ctts_tpu_torch.")]
+for name in names + ["chip_smoke"]:
+    importlib.import_module(name)
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 15    # every module was reached
