@@ -5,20 +5,30 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each raises on failure; the exit code is nonzero on any fault):
   1. environment report (torch, CUDA, device, power limit, nvcc);
-  2. build the Hopper kernels (csrc/*.cu) and libctts.so from source;
+  2. build the Hopper kernels (csrc/*.cu, one nvcc per source in
+     parallel) and libctts.so from source;
   3. IEEE division and sqrt on the card against numpy, bit for bit;
   4. each kernel against its plain PyTorch version on the card, at the
-     serving bucket's shapes, with both median times (CUDA events);
+     serving bucket's shapes (WSOLA at speeds 1.5 and 0.5, and for one
+     sentence at 1.5), with both
+     median times (CUDA events), the least time the card could take
+     (bound) and, where one PyTorch call computes the same function,
+     that call's time;
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
-     16 bench texts x 8, with every kernel's launch count, the output
-     checked against the NumPy oracle (equal lengths, <= 2 LSB), the
-     steady-state audio-seconds per wall-second and peak memory. The
-     stream yields batch N after batch N+2 is enqueued, so per-yield
-     intervals are not batch periods: the steady rate of batches 2-3 is
-     their audio over the wall time a 3-batch stream takes beyond a
-     1-batch stream (the same fill and drain cancel), medians of
-     interleaved repeats; the last 3-batch stream is the counted run.
-The last line is {"ok": true, "device": {...}}.
+     16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA),
+     each with every kernel's launch count, the output checked against
+     the NumPy oracle (equal lengths, <= 2 LSB), the steady-state
+     audio-seconds of output per wall-second and peak memory; then one
+     synchronous synthesize of the batch at speed 0.5, held to the
+     oracle the same way. The stream yields batch N after batch N+2 is
+     enqueued, so per-yield intervals are not batch periods: the steady
+     rate of batches 2-3 is their audio over the wall time a 3-batch
+     stream takes beyond a 1-batch stream (the same fill and drain
+     cancel), medians of interleaved repeats; the last 3-batch stream
+     is the counted run.
+The script imports nothing of the JAX package: the oracle, the voice
+builder and the plan compiler are the port's own copies. The last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -59,11 +69,26 @@ TIMING_REPEATS = 3  # interleaved 1- and 3-batch streams, medians used
 SAMPLE_RATE = 22050
 LSB_BOUND = 2       # int16 bound against the oracle (tests/test_device_executor.py)
 
+STRETCH_SPEED = 1.5  # bench.py's stretch section
+SYNC_SPEED = 0.5
+
 # Kernel shapes of the serving bucket above at batch 128.
 B, U, UBUF, CFMAX = 128, 32, 7168, 1024
 R, WREG, MARGIN, CONTW, SMAX = 16, 32768, 3072, 28672, 114688
 NSHIFT = 16
 NBLK = 32
+# WSOLA cases: speed, hop and output width of that bucket
+# (plan_arrays._omax_for), and the sentences of kernel_inputs taken: all
+# B, or the one full-length row (what execute_plan_torch runs, B = 1).
+WSOLA_CASES = {"speed_1.5": (1.5, 85, 78976, slice(None)),
+               "speed_0.5": (0.5, 256, 232448, slice(None)),
+               "speed_1.5_B1": (1.5, 85, 78976, slice(2, 3))}
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+# HBM bytes/s, and the f32 rate outside the tensor cores, taken for the
+# 32-bit integer and float work these kernels do on the CUDA cores.
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
 
 
 def say(tag: str, obj) -> None:
@@ -190,11 +215,59 @@ def kernel_inputs(np):
     offsets = (np.cumsum(seg_tot, 1) - seg_tot).astype(np.int32)
     live = np.where(active, MARGIN + new_lens, 0).astype(np.int32)
     ins["assemble"] = (bufs, offsets, live)
+
+    # wsola: int16-valued sentences (tonal, noise, periodic near-ties as
+    # in tests/test_pallas_wsola.py), ragged lengths: one empty row, one
+    # below a frame, one full row.
+    t = np.arange(SMAX, dtype=np.float32)
+    kinds = [
+        lambda: (6000 * np.sin(2 * np.pi * 137.3 * t / SAMPLE_RATE)
+                 + 2500 * np.sin(2 * np.pi * 291.7 * t / SAMPLE_RATE)
+                 + rng.normal(0, 300, SMAX)),
+        lambda: rng.normal(0, 5000, SMAX),
+        lambda: 8000 * np.sin(2 * np.pi * 128 * t / SAMPLE_RATE),
+    ]
+    sent = np.stack([np.trunc(np.clip(kinds[b % 3](), -32768, 32767))
+                     for b in range(B)]).astype(np.float32)
+    counts = rng.integers(512, SMAX + 1, B).astype(np.int32)
+    counts[:3] = (0, 300, SMAX)
+    sent[np.arange(SMAX)[None, :] >= counts[:, None]] = 0.0
+    ins["wsola"] = (sent, counts)
     return ins
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the CUDA-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    return {"bound_ms": float(max(t_bytes, t_ops)),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": float(ops)}
+
+
+def wsola_ops(np, counts, nrun, hop):
+    """Operations the WSOLA chain does on these inputs: per frame k >= 1
+    the coarse candidates that are valid here (65 at most) and the 6
+    fine ones (counted in full), 384 multiply-adds each, and for every
+    frame 512 window multiplies and 2 x 512 OLA adds."""
+    from ctts_tpu_torch.ops.wsola import AHOP, FRAME, MAX_SHIFT, NCOARSE
+
+    total = 0
+    j = np.arange(NCOARSE) * 4
+    for ic, nr in zip(counts.tolist(), nrun.tolist()):
+        ks = np.arange(1, nr)[:, None]
+        pos = ks * AHOP + j[None, :] - MAX_SHIFT
+        cands = int(((pos >= 0) & (pos + FRAME <= ic)).sum()) + 6 * len(ks)
+        total += cands * 2 * 384 + nr * 3 * FRAME
+    return total
+
+
 def check_kernels(torch, np, hopper) -> dict:
-    """Kernel vs plain version on the card: equal bits, both times."""
+    """Kernel vs plain version on the card: equal bits, both times, the
+    bound and the library call's time."""
+    from ctts_tpu_torch.ops import wsola as tw
+
     dev = torch.device("cuda")
     ins = kernel_inputs(np)
 
@@ -206,27 +279,91 @@ def check_kernels(torch, np, hopper) -> dict:
     bufs, starts, dst, seg_len = cuda(*ins["compact"])
     _, offsets, live = cuda(*ins["assemble"])
     TOT, OUTW = R * WREG, MARGIN + SMAX
+
+    # Work each function needs on these inputs (each input read once,
+    # each output written once; see bound()).
+    L = np.clip(ins["pitch"][1], 0, 220).astype(np.int64)
+    pitch_work = bound(seg.nbytes + ana.nbytes + 2 * seg.shape[0] * 276 * 4,
+                       float((276 * L * 4).sum()))
+    ne = ins["compose"][4].astype(np.int64)
+    cf = np.minimum(ins["compose"][3], ne).astype(np.int64)
+    compose_work = bound(
+        4 * (ne.sum() + cf.sum()) + 4 * 4 * B * U
+        + 4 * (B * TOT + B * U * (512 + CFMAX)), float(2 * cf.sum()))
+    compact_work = bound(2 * bufs.nbytes + 3 * starts.nbytes, 0.0)
+    lv = ins["assemble"][2].astype(np.int64)
+    assemble_work = bound(4 * lv.sum() + 2 * offsets.nbytes + 4 * B * OUTW,
+                          float(lv.sum()))
+
+    # Library yardsticks (timed here, never called by the port).
+    # compact: one gather with the source index of every position.
+    src = np.tile(np.arange(TOT, dtype=np.int64), (B, 1))
+    st, ds, sl = ins["compact"][1:]
+    for b, r, k in zip(*np.nonzero(sl)):
+        n = int(sl[b, r, k])
+        src[b, r * WREG + ds[b, r, k]:r * WREG + ds[b, r, k] + n] = \
+            r * WREG + st[b, r, k] + np.arange(n)
+    compact_idx = torch.as_tensor(src, device=dev)
+    # assemble: one index_add of every live sample at its output slot
+    # (each dead sample goes to a dropped slot of its own, so no slot
+    # draws contended atomics; <= 2 adds land on a live slot, so the
+    # atomics' order cannot change the f32 sums).
+    jw = np.arange(WREG)[None, None, :]
+    slot = (np.arange(B)[:, None, None] * OUTW
+            + ins["assemble"][1][:, :, None] + jw)
+    dead = (jw >= ins["assemble"][2][:, :, None]) | \
+        (ins["assemble"][1][:, :, None] + jw >= OUTW)
+    drop = B * OUTW + np.arange(B * TOT).reshape(B, R, WREG)
+    asm_idx = torch.as_tensor(np.where(dead, drop, slot).reshape(-1),
+                              device=dev)
+    asm_zero = torch.zeros(B * (OUTW + TOT), dtype=torch.float32,
+                           device=dev)
+    bufs_flat = bufs.reshape(-1)
+
     cases = {
         "pitch_corr": (
             lambda: hopper.pitch.pitch_corr(seg, ana),
-            lambda: hopper.pitch.pitch_corr_plain(seg, ana), 20, 5),
+            lambda: hopper.pitch.pitch_corr_plain(seg, ana), 20, 5,
+            pitch_work, None),
         "compose": (
             lambda: hopper.compose.compose(contrib, fo, base_off, cf_in,
                                            n_eff, a_c, TOT, True),
             lambda: hopper.compose.compose_plain(contrib, fo, base_off, cf_in,
                                                  n_eff, a_c, TOT, True),
-            10, 3),
+            10, 3, compose_work, None),
         "compact": (
             lambda: hopper.compact.compact(bufs, starts, dst, seg_len, WREG),
             lambda: hopper.compact.compact_plain(bufs, starts, dst, seg_len,
-                                                 WREG), 20, 3),
+                                                 WREG), 20, 3,
+            compact_work, lambda: (bufs.gather(1, compact_idx),)),
         "assemble": (
             lambda: hopper.assemble.assemble(bufs, offsets, live, WREG, OUTW),
             lambda: hopper.assemble.assemble_plain(bufs, offsets, live, WREG,
-                                                   OUTW), 20, 3),
+                                                   OUTW), 20, 3,
+            assemble_work,
+            lambda: (torch.index_add(asm_zero, 0, asm_idx, bufs_flat)
+                     [:B * OUTW].reshape(B, OUTW),)),
     }
+    for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
+        sent, counts = cuda(*(x[rows] for x in ins["wsola"]))
+        sq = tw.energy_table(sent)
+        nrun = tw.run_counts(counts, SMAX, out_size, hop)
+        nr = nrun.cpu().numpy()
+        cnt = ins["wsola"][1][rows]
+        work = bound(
+            2 * 4 * np.minimum(cnt, SMAX).astype(np.int64).sum()
+            + 4 * 512 + 2 * 4 * len(cnt) * out_size,
+            float(wsola_ops(np, cnt, nr, hop)))
+        work.update(speed=speed, hop=hop, out_size=out_size,
+                    max_nrun=int(nr.max()), frames=int(nr.sum()))
+        args = (sent, sq, counts, nrun, hop, out_size)
+        cases[f"wsola_frames {tag}"] = (
+            lambda args=args: hopper.wsola.wsola_frames(*args),
+            lambda args=args: tw.wsola_frames_plain(*args),
+            10, 3, work, None)
+
     results = {}
-    for name, (kern, plain, reps, plain_reps) in cases.items():
+    for name, (kern, plain, reps, plain_reps, work, library) in cases.items():
         got, want = kern(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -236,7 +373,11 @@ def check_kernels(torch, np, hopper) -> dict:
         res = {"equal": equal, "max_abs_err": err,
                "ms": time_ms(kern, reps), "plain_ms": time_ms(plain,
                                                               plain_reps),
-               "shapes": [list(g.shape) for g in got]}
+               "shapes": [list(g.shape) for g in got], **work,
+               "library_ms": None}
+        if library is not None:
+            res["library_ms"] = time_ms(library, reps)
+            res["library_equal"] = torch.equal(library()[0], got[0])
         say(f"kernel {name}", res)
         if not equal:
             raise RuntimeError(f"{name}: kernel differs from its plain "
@@ -245,96 +386,152 @@ def check_kernels(torch, np, hopper) -> dict:
     return results
 
 
+def make_voice(root: str) -> str:
+    """The deterministic generated voice bank, built into voice.db."""
+    from ctts_tpu_torch.db.builder import build_database
+    from ctts_tpu_torch.db.dataset import generate_dataset
+
+    ds = os.path.join(root, "dataset")
+    generate_dataset(ds)
+    dbp = os.path.join(root, "voice.db")
+    build_database(os.path.join(ds, "letters", "wavs"),
+                   os.path.join(ds, "letters", "letters.txt"),
+                   os.path.join(ds, "syllables", "wavs"),
+                   os.path.join(ds, "syllables", "sillabes.txt"),
+                   dbp, verbose=False)
+    return dbp
+
+
+def check_oracle(np, db, config, batches, speed: float) -> int:
+    """Every output equals the port's NumPy oracle in length and within
+    LSB_BOUND; returns the largest difference."""
+    from ctts_tpu_torch.plan.compiler import compile_plan
+    from ctts_tpu_torch.synth.oracle import execute_plan_oracle
+
+    worst = 0
+    for j, text in enumerate(TEXTS):
+        ref = execute_plan_oracle(
+            compile_plan(db, text, config, None, speed), db)
+        for outs in batches:
+            for rep in range(BATCH_MULT):
+                got = outs[rep * len(TEXTS) + j]
+                if got.dtype != np.int16 or got.shape != ref.shape:
+                    raise RuntimeError(
+                        f"{text!r} at speed {speed}: length {got.shape} "
+                        f"vs oracle {ref.shape}")
+                d = int(np.abs(got.astype(np.int32)
+                               - ref.astype(np.int32)).max(initial=0))
+                worst = max(worst, d)
+                if d > LSB_BOUND:
+                    raise RuntimeError(
+                        f"{text!r} at speed {speed}: max |diff| {d} LSB "
+                        "vs the oracle")
+    return worst
+
+
+def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
+    """stream() over N_BATCHES batches at one speed, timed and held to
+    the oracle; the launch counts are those of the last 3-batch stream,
+    and every kernel in `kernels` must have launched there."""
+    texts = TEXTS * BATCH_MULT
+
+    def timed_stream(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(bs.stream((texts for _ in range(n)), speed=speed))
+        return got, time.perf_counter() - t0
+
+    timed_stream(1)                       # first-use set-up, untimed
+    walls_1, walls_n = [], []
+    for rep in range(TIMING_REPEATS):
+        walls_1.append(timed_stream(1)[1])
+        if rep == TIMING_REPEATS - 1:
+            torch.cuda.reset_peak_memory_stats()
+            hopper.reset_launches()
+        batches, wall = timed_stream(N_BATCHES)
+        walls_n.append(wall)
+    launches = hopper.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    wall_1 = sorted(walls_1)[TIMING_REPEATS // 2]
+    wall_n = sorted(walls_n)[TIMING_REPEATS // 2]
+
+    if len(batches) != N_BATCHES or any(len(o) != len(texts)
+                                        for o in batches):
+        raise RuntimeError("stream did not yield every batch in full")
+    audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
+             for outs in batches]
+    worst = check_oracle(np, bs.db, bs.config, batches, speed)
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched by the path at speed "
+                           f"{speed}: {missing}")
+    return {
+        "speed": speed, "batches": len(batches),
+        "sentences_per_batch": len(texts), "distinct_texts": len(TEXTS),
+        "oracle_max_abs_diff": worst, "launches": launches,
+        "audio_s_per_batch": audio,
+        "stream_1_batch_s": walls_1, "stream_3_batches_s": walls_n,
+        "stream_audio_s_per_wall_s": sum(audio) / wall_n,
+        "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
+        "max_memory_allocated_bytes": peak,
+    }
+
+
 def run_slice(torch, np, hopper) -> dict:
-    """The serving path end to end on the card, held to the oracle."""
-    from ctts_tpu.config import config_defaults
-    from ctts_tpu.db.builder import build_database
-    from ctts_tpu.db.dataset import generate_dataset
-    from ctts_tpu.db.reader import VoiceDatabase
-    from ctts_tpu.plan.compiler import compile_plan
-    from ctts_tpu.synth.oracle import execute_plan_oracle
+    """The serving path end to end on the card, held to the oracle:
+    speed 1.0 (K1-K4), speed 1.5 and a synchronous batch at 0.5 (all
+    five kernels)."""
+    from ctts_tpu_torch.config import config_defaults
+    from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
 
+    names = [m.KERNEL for m in hopper.MODULES]
     with tempfile.TemporaryDirectory() as root:
-        ds = os.path.join(root, "dataset")
-        generate_dataset(ds)
-        dbp = os.path.join(root, "voice.db")
-        build_database(os.path.join(ds, "letters", "wavs"),
-                       os.path.join(ds, "letters", "letters.txt"),
-                       os.path.join(ds, "syllables", "wavs"),
-                       os.path.join(ds, "syllables", "sillabes.txt"),
-                       dbp, verbose=False)
-        db = VoiceDatabase(dbp)
-        config = config_defaults()
-        bs = BatchSynthesizer(db, config, device=torch.device("cuda"),
-                              dims_floor=FLOOR)
+        db = VoiceDatabase(make_voice(root))
+        bs = BatchSynthesizer(db, config_defaults(),
+                              device=torch.device("cuda"), dims_floor=FLOOR)
+        res = {"1.0": serve(torch, np, hopper, bs, 1.0,
+                            [n for n in names if n != "wsola_frames"])}
+        say("slice", res["1.0"])
+        res["1.5"] = serve(torch, np, hopper, bs, STRETCH_SPEED, names)
+        say("slice_stretch", res["1.5"])
+
         texts = TEXTS * BATCH_MULT
-
-        def timed_stream(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = list(bs.stream(texts for _ in range(n)))
-            return got, time.perf_counter() - t0
-
-        timed_stream(1)                       # first-use set-up, untimed
-        walls_1, walls_n = [], []
-        for rep in range(TIMING_REPEATS):
-            walls_1.append(timed_stream(1)[1])
-            if rep == TIMING_REPEATS - 1:
-                torch.cuda.reset_peak_memory_stats()
-                hopper.reset_launches()
-            batches, wall = timed_stream(N_BATCHES)
-            walls_n.append(wall)
+        bs.synthesize(texts, speed=SYNC_SPEED)    # first-use set-up
+        torch.cuda.synchronize()
+        hopper.reset_launches()
+        t0 = time.perf_counter()
+        outs = bs.synthesize(texts, speed=SYNC_SPEED)
+        wall = time.perf_counter() - t0
         launches = hopper.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        wall_1 = sorted(walls_1)[TIMING_REPEATS // 2]
-        wall_n = sorted(walls_n)[TIMING_REPEATS // 2]
-
-        if len(batches) != N_BATCHES or any(len(o) != len(texts)
-                                            for o in batches):
-            raise RuntimeError("stream did not yield every batch in full")
-        audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
-                 for outs in batches]
-
-        worst = 0
-        for j, text in enumerate(TEXTS):
-            ref = execute_plan_oracle(
-                compile_plan(db, text, config, None, 1.0), db)
-            for outs in batches:
-                for rep in range(BATCH_MULT):
-                    got = outs[rep * len(TEXTS) + j]
-                    if got.dtype != np.int16 or got.shape != ref.shape:
-                        raise RuntimeError(
-                            f"{text!r}: length {got.shape} vs oracle "
-                            f"{ref.shape}")
-                    d = int(np.abs(got.astype(np.int32)
-                                   - ref.astype(np.int32)).max(initial=0))
-                    worst = max(worst, d)
-                    if d > LSB_BOUND:
-                        raise RuntimeError(
-                            f"{text!r}: max |diff| {d} LSB vs the oracle")
-        missing = [k for k, v in launches.items() if v <= 0]
+        worst = check_oracle(np, db, bs.config, [outs], SYNC_SPEED)
+        missing = [k for k in names if launches[k] <= 0]
         if missing:
-            raise RuntimeError(f"kernels not launched by the path: {missing}")
-        res = {
-            "batches": len(batches), "sentences_per_batch": len(texts),
-            "distinct_texts": len(TEXTS), "oracle_max_abs_diff": worst,
-            "launches": launches,
-            "audio_s_per_batch": audio,
-            "stream_1_batch_s": walls_1, "stream_3_batches_s": walls_n,
-            "stream_audio_s_per_wall_s": sum(audio) / wall_n,
-            "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
-            "max_memory_allocated_bytes": peak,
-        }
-        say("slice", res)
+            raise RuntimeError(f"kernels not launched at speed "
+                               f"{SYNC_SPEED}: {missing}")
+        audio = sum(o.shape[0] for o in outs) / SAMPLE_RATE
+        res["0.5"] = {"speed": SYNC_SPEED, "sentences": len(texts),
+                      "oracle_max_abs_diff": worst, "launches": launches,
+                      "wall_s": wall, "audio_s": audio,
+                      "audio_s_per_wall_s": audio / wall}
+        say("synthesize_sync", res["0.5"])
         return res
 
 
+LIBRARY_NONE = {
+    "pitch_corr": "none: the sums must be exact int64; no CUDA "
+                  "convolution computes them",
+    "compose": "none: units are placed in sequence, each reading the "
+               "last one's write",
+    "wsola_frames": "none: each frame's search reads the previous "
+                    "frame's choice",
+}
+
+
 def main() -> int:
-    if not os.path.isdir(os.path.join(REPO, "ctts_tpu_torch")) or \
-            not os.path.isdir(os.path.join(REPO, "ctts_tpu")):
-        print("chip_smoke.py: ctts_tpu_torch/ and ctts_tpu/ not found next "
-              "to this script; run it from a checkout", file=sys.stderr)
+    if not os.path.isdir(os.path.join(REPO, "ctts_tpu_torch")):
+        print("chip_smoke.py: ctts_tpu_torch/ not found next to this "
+              "script; run it from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     import numpy as np
@@ -367,16 +564,26 @@ def main() -> int:
     kern = check_kernels(torch, np, hopper)
     sl = run_slice(torch, np, hopper)
 
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported")
+    leaked = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith(("jax.", "ctts_tpu."))
+                    or m == "ctts_tpu")
+    if leaked:
+        raise RuntimeError(f"the JAX package or jax was imported: {leaked}")
     kernels = []
     for mod in hopper.MODULES:
-        k = kern[mod.KERNEL]
-        kernels.append({"name": mod.KERNEL, "route": "cuda",
+        name = mod.KERNEL
+        # The wsola kernel belongs to the speed-1.5 path; its line
+        # carries the speed-1.5 case of phase 4.
+        k = kern[name] if name in kern else kern[f"{name} speed_1.5"]
+        path = sl["1.5"] if name == "wsola_frames" else sl["1.0"]
+        kernels.append({"name": name, "route": "cuda",
                         "source": mod.SOURCE, "replaces": mod.REPLACES,
-                        "launches": sl["launches"][mod.KERNEL],
+                        "launches": path["launches"][name],
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                        "plain_ms": k["plain_ms"]})
+                        "plain_ms": k["plain_ms"],
+                        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                        "library_ms": k["library_ms"]})
+    say("library_none", LIBRARY_NONE)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(env.gpu_name_and_power_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

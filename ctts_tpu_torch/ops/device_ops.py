@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ctts_tpu.constants import SAMPLE_RATE
+from ctts_tpu_torch.constants import SAMPLE_RATE
 from ctts_tpu_torch.ops.exact import sqrt_rn
 from ctts_tpu_torch.ops.luts import hann, sine_fade_gain
 from ctts_tpu_torch.ops.quant import q16, trunc16, wrap16

@@ -1,17 +1,24 @@
 """Hand-written Hopper (sm_90a) kernels of the serving path.
 
-One module per Pallas kernel of ctts_tpu/ops/pallas on the speed-1.0
-path: pitch, compose, compact, assemble. Each holds the wrapper (the
-CUDA kernel for a CUDA tensor, the plain PyTorch version for a CPU
-tensor), the plain version itself, and a launch counter that only a
-kernel launch increments.
+One module per Pallas kernel of ctts_tpu/ops/pallas: pitch, compose,
+compact and assemble on every path, wsola (both WSOLA kernels) on the
+speed != 1.0 path. Each holds the wrapper (the CUDA kernel for a CUDA
+tensor, the plain PyTorch version for a CPU tensor), the plain version
+itself or its import, and a launch counter that only a kernel launch
+increments.
 """
 
 from __future__ import annotations
 
-from ctts_tpu_torch.ops.hopper import assemble, compact, compose, pitch
+from ctts_tpu_torch.ops.hopper import (
+    assemble,
+    compact,
+    compose,
+    pitch,
+    wsola,
+)
 
-MODULES = (pitch, compose, compact, assemble)
+MODULES = (pitch, compose, compact, assemble, wsola)
 
 
 def reset_launches() -> None:

@@ -1,6 +1,7 @@
 """Build and load the Hopper kernels at first use.
 
-Every ctts_tpu_torch/csrc/*.cu is compiled by nvcc for sm_90a into one
+Every ctts_tpu_torch/csrc/*.cu is compiled by its own nvcc process for
+sm_90a (all started together), and the objects are linked into one
 shared library with a plain C interface, ctts_tpu_torch/_build/
 libctts_hopper.so, rebuilt when a source is newer, and loaded with
 ctypes. No PyTorch headers are included, so a build takes seconds
@@ -27,8 +28,7 @@ BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libctts_hopper.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +40,7 @@ SIGNATURES = {
                      _I, _I, _I, _I, _I, _I, _P],
     "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -67,23 +68,44 @@ def _stale() -> bool:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into LIB_PATH when it is missing or stale."""
+    """Compile csrc/*.cu into LIB_PATH when it is missing or stale: one
+    nvcc per source, all running at once, then one link."""
     if not _stale():
         return LIB_PATH
     nvcc = nvcc_path()
     if not os.path.exists(nvcc):
         raise RuntimeError(f"nvcc not found (looked for {nvcc})")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libctts_hopper.{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = os.getpid()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"rc {proc.returncode}: {' '.join(cmd)}\n{out}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    tmp = BUILD_DIR / f"libctts_hopper.{tag}.so"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"rc {r.returncode}: {' '.join(cmd)}\n"
+                          f"{r.stdout}{r.stderr}")
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {r.returncode}): {' '.join(cmd)}\n"
-            f"{BuildInfo.log}")
+    BuildInfo.log = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)
     BuildInfo.built = True
     return LIB_PATH

@@ -1,7 +1,7 @@
 """Fade lookup tables (ctts_tpu/ops/luts.py; parity: ctts.c:52-101).
 
-The tables are the oracle's (ctts_tpu/synth/dsp_np.py) and are uploaded
-once per device.
+The tables are the oracle's (the port's copy, synth/dsp_np.py) and are
+uploaded once per device.
 """
 
 from __future__ import annotations
@@ -11,8 +11,12 @@ import functools
 import numpy as np
 import torch
 
-from ctts_tpu.constants import FADE_LUT_SIZE
-from ctts_tpu.synth.dsp_np import FADE_IN_LUT, FADE_OUT_LUT, SINE_FADE_LUT
+from ctts_tpu_torch.constants import FADE_LUT_SIZE
+from ctts_tpu_torch.synth.dsp_np import (
+    FADE_IN_LUT,
+    FADE_OUT_LUT,
+    SINE_FADE_LUT,
+)
 
 _TABLES = {"fade_out": FADE_OUT_LUT, "fade_in": FADE_IN_LUT,
            "sine_fade": SINE_FADE_LUT}

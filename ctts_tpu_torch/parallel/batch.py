@@ -1,4 +1,4 @@
-"""Batched serving on one CUDA device: the speed-1.0 production path.
+"""Batched serving on one CUDA device: the production path.
 
 Counterpart of ctts_tpu/parallel/batch.py without the device mesh and
 the wire codec. Texts are lowered on the host (natively through
@@ -7,8 +7,9 @@ identical PlanDims, stacked, and run through SynthesisCore as one
 batch per bucket. Each batch's valid prefixes are packed into one flat
 int16 buffer on the device, so the host copy is sum(out_len) samples.
 
-Arguments this slice does not serve (speed != 1.0, a mesh, the wire
-codec) raise NotImplementedError; they never run something else.
+Every speed is served (WSOLA for speed != 1.0, with OMAX-wide rows).
+Arguments the port does not serve yet (a mesh, the wire codec) raise
+NotImplementedError; they never run something else.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ctts_tpu.config import CTTSConfig
-from ctts_tpu.db.reader import VoiceDatabase
-from ctts_tpu.plan.compiler import compile_plan
-from ctts_tpu.text.rules import NormalizationRules
+from ctts_tpu_torch.config import CTTSConfig
+from ctts_tpu_torch.db.reader import VoiceDatabase
+from ctts_tpu_torch.plan.compiler import compile_plan
+from ctts_tpu_torch.plan.split import split_plan
 from ctts_tpu_torch.synth.device import (
     DeviceVoice,
     SynthesisCore,
@@ -37,6 +38,7 @@ from ctts_tpu_torch.synth.plan_arrays import (
     shared_plan_values,
     walk_plan,
 )
+from ctts_tpu_torch.text.rules import NormalizationRules
 
 
 def _next_batch_size(n: int, multiple: int) -> int:
@@ -44,13 +46,6 @@ def _next_batch_size(n: int, multiple: int) -> int:
     ctts_tpu/parallel/batch.py:202."""
     g = int(8 * multiple // np.gcd(8, multiple))
     return max(-(-n // g) * g, g)
-
-
-def _check_speed(speed: float) -> None:
-    if np.float32(speed) != np.float32(1.0):
-        raise NotImplementedError(
-            f"speed {speed}: only speed 1.0 is ported to ctts_tpu_torch "
-            "(WSOLA is not)")
 
 
 def pack_rows(out: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
@@ -163,13 +158,10 @@ class BatchSynthesizer:
     def _lower_batch(self, texts, speed: float, split: bool):
         """(prepared, spans): rows lowered and stacked per bucket, and the
         [start, end) row range of every input text."""
-        _check_speed(speed)
         if self._nl is not None:
             return self._prepare_native(texts, speed, split)
         plans = self.compile_plans(texts, speed)
         if split:
-            from ctts_tpu.plan.split import split_plan
-
             rows, spans = [], []
             for p in plans:
                 r = split_plan(p, self.db)

@@ -1,13 +1,14 @@
 """Native (C++) batch plan lowering: text -> device-plan arrays.
 
 The same ctypes binding as ctts_tpu/plan/native_lower.py to the
-`ctl_*` entry points of ctts_tpu/runtime/libctts.so (the C++ twin of
-compile_plan -> split_plan -> walk_plan -> derive_dims ->
-fill_device_plan), constructing this package's PlanDims so that no
-jax import is needed. Unlike the JAX package's loader, a failed `make`
-or a missing or unloadable library raises (after a few retries that
-cover a concurrent build): a stale library would be wrong in the same
-way for both packages and no parity test would see it.
+`ctl_*` entry points of libctts.so (the C++ twin of compile_plan ->
+split_plan -> walk_plan -> derive_dims -> fill_device_plan), built by
+`make` from this package's own copy of the native runtime
+(ctts_tpu_torch/runtime) and constructing this package's PlanDims.
+Unlike the JAX package's loader, a failed `make` or a missing or
+unloadable library raises (after a few retries that cover a concurrent
+build): a stale library would be wrong and no parity test would see
+it.
 """
 
 from __future__ import annotations
@@ -20,12 +21,11 @@ from typing import Sequence
 
 import numpy as np
 
-import ctts_tpu
-from ctts_tpu.config import CTTSConfig
+from ctts_tpu_torch.config import CTTSConfig
 from ctts_tpu_torch.synth.plan_arrays import PlanDims
 
-_RUNTIME = os.path.join(os.path.dirname(os.path.abspath(ctts_tpu.__file__)),
-                        "runtime")
+_RUNTIME = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "runtime")
 _SO = os.path.join(_RUNTIME, "libctts.so")
 
 
@@ -105,10 +105,10 @@ _BUILD_ATTEMPTS = 3
 
 def _make_and_open() -> ctypes.CDLL:
     """make (dependency-checked: a no-op when current), then dlopen.
-    Another process may be writing libctts.so at the same moment (the
-    JAX package runs the same make), which shows as a failed make or an
-    unloadable file; that is retried a few times, then raised with
-    make's output."""
+    Another process may be writing libctts.so at the same moment (a
+    second test worker runs the same make), which shows as a failed
+    make or an unloadable file; that is retried a few times, then
+    raised with make's output."""
     for attempt in range(_BUILD_ATTEMPTS):
         r = subprocess.run(["make", "-C", _RUNTIME, "libctts.so"],
                            capture_output=True, text=True)

@@ -1,13 +1,13 @@
 """The synthesis core in PyTorch: plan arrays in, int16 audio out.
 
 Counterpart of ctts_tpu/synth/device.py: `DeviceVoice` (:588) holds the
-voice bank on the device, `SynthesisCore` runs build_core's
-speed-1.0 pipeline (:648-1652, the compose_refine=True, stretch=False
-branch) on a batch of lowered plans, and `execute_plan_torch` (:1660)
-is the single-sentence entry. The batch is an explicit leading
-dimension; the JAX scans and while-loops are Python loops over batched
-tensors. The four Pallas kernels of the path are the Hopper kernels of
-ops/hopper (on a CPU device their plain versions run).
+voice bank on the device, `SynthesisCore` runs build_core's pipeline
+(:648-1652, the compose_refine=True branch, WSOLA for speed != 1.0) on
+a batch of lowered plans, and `execute_plan_torch` (:1660) is the
+single-sentence entry. The batch is an explicit leading dimension; the
+JAX scans and while-loops are Python loops over batched tensors. The
+Pallas kernels of the path are the Hopper kernels of ops/hopper (on a
+CPU device their plain versions run).
 
 Stage order (JAX line numbers): prepare_base and the DC/fade chain of
 make_contrib_fn (761-918); head pitch (1070-1084); the refine loop of
@@ -15,7 +15,7 @@ compose + boundary_heads (920-1030, 1212-1223); the final compose
 (1223); in-region tail fades (1250-1268); silence tables (1276-1300);
 compaction (1302-1320); contour, the interrogative fall and
 region_post (1338-1595); assembly, q16 and the length mask (1599-1635);
-int16 out (1650).
+WSOLA when the bucket stretches (1639-1646); int16 out (1650).
 """
 
 from __future__ import annotations
@@ -27,8 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ctts_tpu.db.reader import VoiceDatabase
-from ctts_tpu.plan.compiler import SynthesisPlan
+from ctts_tpu_torch.db.reader import VoiceDatabase
 from ctts_tpu_torch.ops import device_ops as dops
 from ctts_tpu_torch.ops.exact import sqrt_rn
 from ctts_tpu_torch.ops.hopper.assemble import assemble
@@ -36,6 +35,8 @@ from ctts_tpu_torch.ops.hopper.compact import compact
 from ctts_tpu_torch.ops.hopper.compose import compose
 from ctts_tpu_torch.ops.luts import fade_in_gain, fade_out_gain, sine_fade_gain
 from ctts_tpu_torch.ops.quant import q16, trunc16
+from ctts_tpu_torch.ops.wsola import time_stretch
+from ctts_tpu_torch.plan.compiler import SynthesisPlan
 from ctts_tpu_torch.synth.plan_arrays import (
     PlanDims,
     bucket_dims,
@@ -113,16 +114,17 @@ def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 class SynthesisCore(nn.Module):
-    """The speed-1.0 synthesis core over a batch of lowered plans.
+    """The synthesis core over a batch of lowered plans.
 
     forward(dims, arrays, shared) takes the batch-stacked host arrays of
     fill_device_plan / the native lowerer ([B, ...] numpy) and the
     batch-global value tables of shared_plan_values, uploads them, and
-    returns (out [B, SMAX] int16, out_len [B] i32, ovf [B] i32) on the
-    voice's device, all enqueued without a host sync. Control that the
-    JAX core derives on the device but that only depends on the plan
-    (refine trip count, which regions carry DSP, qfinal or tail fades)
-    is read from the host arrays instead."""
+    returns (out [B, OMAX] int16, out_len [B] i32, ovf [B] i32) on the
+    voice's device (OMAX = SMAX unless the bucket stretches), all
+    enqueued without a host sync. Control that the JAX core derives on
+    the device but that only depends on the plan (refine trip count,
+    which regions carry DSP, qfinal or tail fades) is read from the
+    host arrays instead."""
 
     def __init__(self, voice: DeviceVoice):
         super().__init__()
@@ -133,9 +135,6 @@ class SynthesisCore(nn.Module):
 
     @torch.no_grad()
     def forward(self, dims: PlanDims, arrays: dict, shared: dict):
-        if dims.stretch:
-            raise NotImplementedError(
-                "speed != 1.0 (WSOLA) is not ported to ctts_tpu_torch")
         if not dims.compose_refine:
             raise NotImplementedError(
                 "only the refine compose (compose_refine=True) is ported")
@@ -172,8 +171,11 @@ class SynthesisCore(nn.Module):
         bufs = bufs.reshape(-1, dims.R, dims.WREG)
         bufs = self._contour(dims, ar, arrays, bufs, comp_lens)
         bufs = self._region_post(dims, ar, arrays, bufs, comp_lens)
-        out, total_len = self._assemble(dims, ar, bufs, comp_lens)
-        return out.to(torch.int16), total_len.to(torch.int32), ovf
+        out, out_len = self._assemble(dims, ar, bufs, comp_lens)
+        if dims.stretch:
+            out, out_len = time_stretch(out, out_len, ar["speed"], dims.OMAX,
+                                        dims.synth_hop)
+        return out.to(torch.int16), out_len.to(torch.int32), ovf
 
     # -- bank pick and crossfade curves (device.py:761-812) ---------------
 

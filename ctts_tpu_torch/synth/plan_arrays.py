@@ -3,8 +3,8 @@
 A jax-free copy of ctts_tpu/synth/device.py:59-645 (PlanDims,
 bucket_dims, walk_plan, derive_dims, fill_device_plan,
 build_device_plan, shared_plan_values) so the PyTorch port imports on a
-host without JAX. Every array and dimension it produces is equal to the
-JAX package's (tests/test_torch_plan_arrays.py).
+host without JAX or ctts_tpu. Every array and dimension it produces is
+equal to the JAX package's (tests/test_torch_plan_arrays.py).
 """
 
 from __future__ import annotations
@@ -14,18 +14,10 @@ from typing import Optional
 
 import numpy as np
 
-from ctts_tpu.db.reader import VoiceDatabase
-from ctts_tpu.plan.compiler import OpKind, SynthesisPlan
-from ctts_tpu.text.prosody import PhraseType
-
-AHOP = 128  # WSOLA analysis hop (ctts_tpu/ops/wsola_jax.py)
-
-
-def synthesis_hop_for_speed(speed: float) -> int:
-    """(size_t)(analysis_hop / clamped_speed), min 1 (ctts.c:3511-3512);
-    ctts_tpu/ops/wsola_jax.py:177."""
-    s = min(max(np.float32(speed), np.float32(0.5)), np.float32(2.0))
-    return max(int(np.float32(AHOP) / s), 1)
+from ctts_tpu_torch.db.reader import VoiceDatabase
+from ctts_tpu_torch.ops.wsola import synthesis_hop_for_speed
+from ctts_tpu_torch.plan.compiler import OpKind, SynthesisPlan
+from ctts_tpu_torch.text.prosody import PhraseType
 
 
 @dataclasses.dataclass(frozen=True)

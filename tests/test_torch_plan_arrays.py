@@ -2,17 +2,20 @@
 
 The port carries jax-free copies of the plan lowering
 (synth/plan_arrays.py), of the libctts.so binding
-(plan/native_lower.py) and of the voice-bank upload (DeviceVoice). On
-bench.py's 16 texts every walked record, dimension and array must equal
-the JAX package's, array for array.
+(plan/native_lower.py, over its own copy of the native runtime) and of
+the voice-bank upload (DeviceVoice). On bench.py's 16 texts every
+walked record, dimension and array must equal the JAX package's, array
+for array.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import ctts_tpu_torch
 from bench import TEXTS
 from ctts_tpu.config import config_defaults
 from ctts_tpu.db.reader import VoiceDatabase
@@ -59,24 +62,31 @@ def test_lowering_equal(db, text):
 
 
 def test_native_lowerer_equal(db):
+    """The port's libctts.so, built from its own copy of the runtime
+    (ctts_tpu_torch/runtime), lowers like ctts_tpu's, at speed 1.0 and
+    in the stretch buckets of speed 1.5."""
     from ctts_tpu.plan.native_lower import NativeLowerer as JNL
+    from ctts_tpu_torch.plan import native_lower as tnl_mod
     from ctts_tpu_torch.plan.native_lower import NativeLowerer as TNL
 
     cfg = config_defaults()
     jnl, tnl = JNL(db.path, cfg), TNL(db.path, cfg)
-    js, jdims, jtrips = jnl.lower(TEXTS, 1.0, True)
-    ts, tdims, ttrips = tnl.lower(TEXTS, 1.0, True)
-    assert js == ts and jtrips == ttrips
-    assert [dataclasses.asdict(d) for d in jdims] == \
-        [dataclasses.asdict(d) for d in tdims]
-    for r, (jd, td) in enumerate(zip(jdims, tdims)):
-        jb, tb = jdev.bucket_dims(jd, FLOOR), tpa.bucket_dims(td, FLOOR)
-        ja, ta = jnl.alloc_stacked(jb, 1), tnl.alloc_stacked(tb, 1)
-        jnl.fill_into(r, jb, ja, 0)
-        tnl.fill_into(r, tb, ta, 0)
-        for k in ("threshold", "speed", "refine_trips"):
-            del ja[k], ta[k]          # filled by the caller, not the lib
-        _same_arrays(ja, ta)
+    assert tnl_mod._SO == os.path.join(
+        os.path.dirname(ctts_tpu_torch.__file__), "runtime", "libctts.so")
+    for speed in (1.0, 1.5):
+        js, jdims, jtrips = jnl.lower(TEXTS, speed, True)
+        ts, tdims, ttrips = tnl.lower(TEXTS, speed, True)
+        assert js == ts and jtrips == ttrips
+        assert [dataclasses.asdict(d) for d in jdims] == \
+            [dataclasses.asdict(d) for d in tdims]
+        for r, (jd, td) in enumerate(zip(jdims, tdims)):
+            jb, tb = jdev.bucket_dims(jd, FLOOR), tpa.bucket_dims(td, FLOOR)
+            ja, ta = jnl.alloc_stacked(jb, 1), tnl.alloc_stacked(tb, 1)
+            jnl.fill_into(r, jb, ja, 0)
+            tnl.fill_into(r, tb, ta, 0)
+            for k in ("threshold", "speed", "refine_trips"):
+                del ja[k], ta[k]      # filled by the caller, not the lib
+            _same_arrays(ja, ta)
     tnl.close()
 
 
