@@ -13,7 +13,8 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      sentence at 1.5), with both
      median times (CUDA events), the least time the card could take
      (bound) and, where one PyTorch call computes the same function,
-     that call's time;
+     that call's time; for WSOLA also the latency floor of its frame
+     chain (a microbenchmark of the chain's dependent steps);
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA),
      each with every kernel's launch count, the output checked against
@@ -246,21 +247,46 @@ def bound(nbytes: float, ops: float) -> dict:
             "bytes": int(nbytes), "ops": float(ops)}
 
 
-def wsola_ops(np, counts, nrun, hop):
-    """Operations the WSOLA chain does on these inputs: per frame k >= 1
-    the coarse candidates that are valid here (65 at most) and the 6
-    fine ones (counted in full), 384 multiply-adds each, and for every
-    frame 512 window multiplies and 2 x 512 OLA adds."""
-    from ctts_tpu_torch.ops.wsola import AHOP, FRAME, MAX_SHIFT, NCOARSE
+def pitch_ops(np, ana):
+    """Operations pitch_corr needs on these inputs, per row of analysis
+    length L > 0: corr, 276 lags x L multiply-adds; e2 from a prefix sum
+    of the L + 275 squares it reads (a multiply and an add each), one
+    subtraction per lag."""
+    L = np.clip(ana, 0, 220).astype(np.int64)
+    return float((2 * 276 * L + np.where(L > 0, 2 * (L + 275) + 276, 0))
+                 .sum())
 
-    total = 0
-    j = np.arange(NCOARSE) * 4
-    for ic, nr in zip(counts.tolist(), nrun.tolist()):
-        ks = np.arange(1, nr)[:, None]
-        pos = ks * AHOP + j[None, :] - MAX_SHIFT
-        cands = int(((pos >= 0) & (pos + FRAME <= ic)).sum()) + 6 * len(ks)
-        total += cands * 2 * 384 + nr * 3 * FRAME
-    return total
+
+def pitch_conv(torch, seg, ana):
+    """K2's library yardstick: one f64 grouped conv1d over the channels
+    [s, s^2] of each row with the weights [masked s[:220], mask] gives
+    corr and e2 exactly (int16 products, every partial sum an integer
+    below 2^53), rounded once to f32. The inputs are set up here; the
+    returned function makes the one call."""
+    n = seg.shape[0]
+    s64 = seg.to(torch.float64)
+    m64 = (torch.arange(220, device=seg.device)[None, :]
+           < ana.clamp(0, 220)[:, None]).to(torch.float64)
+    x = torch.stack([s64, s64 * s64], 1).reshape(1, 2 * n, -1)
+    w = torch.stack([s64[:, :220] * m64, m64], 1).reshape(2 * n, 1, 220)
+
+    def call():
+        y = torch.nn.functional.conv1d(x, w, groups=2 * n)
+        y = y.reshape(n, 2, -1).to(torch.float32)
+        return y[:, 0], y[:, 1]
+
+    return call
+
+
+def wsola_ops(searched, nrun):
+    """Operations the WSOLA chain needs on these inputs: 384 multiply-
+    adds for each valid coarse and fine candidate its frames evaluate
+    (counted by the plain version), and for every frame 512 window
+    multiplies and 2 x 512 OLA adds."""
+    from ctts_tpu_torch.ops.wsola import FRAME, OVERLAP
+
+    return float((searched["coarse"] + searched["fine"]) * 2 * OVERLAP
+                 + int(nrun.sum()) * 3 * FRAME)
 
 
 def check_kernels(torch, np, hopper) -> dict:
@@ -282,9 +308,8 @@ def check_kernels(torch, np, hopper) -> dict:
 
     # Work each function needs on these inputs (each input read once,
     # each output written once; see bound()).
-    L = np.clip(ins["pitch"][1], 0, 220).astype(np.int64)
     pitch_work = bound(seg.nbytes + ana.nbytes + 2 * seg.shape[0] * 276 * 4,
-                       float((276 * L * 4).sum()))
+                       pitch_ops(np, ins["pitch"][1]))
     ne = ins["compose"][4].astype(np.int64)
     cf = np.minimum(ins["compose"][3], ne).astype(np.int64)
     compose_work = bound(
@@ -296,6 +321,7 @@ def check_kernels(torch, np, hopper) -> dict:
                           float(lv.sum()))
 
     # Library yardsticks (timed here, never called by the port).
+    pitch_library = pitch_conv(torch, seg, ana)
     # compact: one gather with the source index of every position.
     src = np.tile(np.arange(TOT, dtype=np.int64), (B, 1))
     st, ds, sl = ins["compact"][1:]
@@ -324,7 +350,7 @@ def check_kernels(torch, np, hopper) -> dict:
         "pitch_corr": (
             lambda: hopper.pitch.pitch_corr(seg, ana),
             lambda: hopper.pitch.pitch_corr_plain(seg, ana), 20, 5,
-            pitch_work, None),
+            pitch_work, pitch_library),
         "compose": (
             lambda: hopper.compose.compose(contrib, fo, base_off, cf_in,
                                            n_eff, a_c, TOT, True),
@@ -350,13 +376,22 @@ def check_kernels(torch, np, hopper) -> dict:
         nrun = tw.run_counts(counts, SMAX, out_size, hop)
         nr = nrun.cpu().numpy()
         cnt = ins["wsola"][1][rows]
+        args = (sent, sq, counts, nrun, hop, out_size)
+        searched = {}
+        tw.wsola_frames_plain(*args, searched=searched)
         work = bound(
             2 * 4 * np.minimum(cnt, SMAX).astype(np.int64).sum()
             + 4 * 512 + 2 * 4 * len(cnt) * out_size,
-            float(wsola_ops(np, cnt, nr, hop)))
+            wsola_ops(searched, nr))
+        # The chain's latency floor: its dependent steps alone, without
+        # and with the per-frame window load (csrc/wsola.cu).
         work.update(speed=speed, hop=hop, out_size=out_size,
-                    max_nrun=int(nr.max()), frames=int(nr.sum()))
-        args = (sent, sq, counts, nrun, hop, out_size)
+                    max_nrun=int(nr.max()), frames=int(nr.sum()),
+                    candidates=searched,
+                    floor_ms=time_ms(lambda: hopper.wsola.chain_floor(
+                        sent, nrun, False), 10),
+                    floor_load_ms=time_ms(lambda: hopper.wsola.chain_floor(
+                        sent, nrun, True), 10))
         cases[f"wsola_frames {tag}"] = (
             lambda args=args: hopper.wsola.wsola_frames(*args),
             lambda args=args: tw.wsola_frames_plain(*args),
@@ -377,7 +412,8 @@ def check_kernels(torch, np, hopper) -> dict:
                "library_ms": None}
         if library is not None:
             res["library_ms"] = time_ms(library, reps)
-            res["library_equal"] = torch.equal(library()[0], got[0])
+            res["library_equal"] = all(
+                torch.equal(lib, g) for lib, g in zip(library(), got))
         say(f"kernel {name}", res)
         if not equal:
             raise RuntimeError(f"{name}: kernel differs from its plain "
@@ -519,8 +555,6 @@ def run_slice(torch, np, hopper) -> dict:
 
 
 LIBRARY_NONE = {
-    "pitch_corr": "none: the sums must be exact int64; no CUDA "
-                  "convolution computes them",
     "compose": "none: units are placed in sequence, each reading the "
                "last one's write",
     "wsola_frames": "none: each frame's search reads the previous "

@@ -207,6 +207,81 @@ wsola_frames_kernel(const float* __restrict__ inp,
   }
 }
 
+// Latency floor of the frame chain (a microbenchmark; not on the
+// serving path). Per frame it keeps only the steps that wait on the
+// previous frame's choice: every warp scores one candidate against the
+// tail at the chosen index (12 int32 products a lane from shared
+// memory, an int64 warp sum, __fsqrt_rn and __fdiv_rn), warp 0 takes
+// the earliest max, six warps score the fine candidates, one thread
+// decides -- four block barriers. The kernel's frame adds four more
+// coarse rounds a warp, the window load and the OLA; with_load puts the
+// window load from global memory back. Block b runs nrun[b] frames and
+// writes its last tail index to out[b].
+__global__ void __launch_bounds__(kThreads)
+wsola_chain_floor_kernel(const float* __restrict__ inp,
+                         const int* __restrict__ nrun,
+                         int* __restrict__ out, int S, int with_load) {
+  __shared__ int win[kWin];
+  __shared__ float score[kWarps];
+  __shared__ int s_j;
+  __shared__ int s_qo;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const float* x = inp + static_cast<size_t>(blockIdx.x) * S;
+  const int nr = nrun[blockIdx.x];
+  const float sq = S > 0 ? 1.0f + fabsf(x[0]) : 1.0f;
+
+  int qo = kMaxShift;
+  for (int k = 0; k < nr; ++k) {
+    if (k == 0 || with_load) {
+      const int nominal = with_load ? k * kAhop : 0;
+      for (int j = tid; j < kWin; j += kThreads) {
+        const int p = nominal - kMaxShift + j;
+        win[j] = (p >= 0 && p < S) ? static_cast<int>(x[p]) : 0;
+      }
+      __syncthreads();
+    }
+    const int* tail = win + qo;
+    const float v = corr_at(win, tail, 4 * warp, sq, sq, lane);
+    if (lane == 0) score[warp] = v;
+    __syncthreads();
+
+    if (warp == 0) {
+      float bv = lane < kWarps ? score[lane] : -CUDART_INF_F;
+      int bi = lane;
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ov > bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      if (lane == 0) s_j = 4 * bi;
+    }
+    __syncthreads();
+
+    if (warp < kNFine) {
+      const float f = corr_at(win, tail, s_j + warp, sq, sq, lane);
+      if (lane == 0) score[warp] = f;
+    }
+    __syncthreads();
+
+    if (tid == 0) {
+      int bw = 0;
+      for (int w = 1; w < kNFine; ++w) {
+        if (score[w] > score[bw]) bw = w;
+      }
+      s_qo = s_j + bw;
+    }
+    __syncthreads();
+    qo = s_qo;
+  }
+  if (tid == 0) out[blockIdx.x] = qo;
+}
+
 }  // namespace
 
 // inp, sq [B, S] f32; input_count, nrun [B] i32; window [512] f32
@@ -219,6 +294,17 @@ extern "C" int ctts_wsola_frames(const float* inp, const float* sq,
   if (B > 0) {
     wsola_frames_kernel<<<B, kThreads, 0, stream>>>(
         inp, sq, input_count, nrun, window, acc, norm, S, hop, out_size);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// inp [B, S] f32, nrun [B] i32 -> out [B] i32 (the chain floor above).
+extern "C" int ctts_wsola_chain_floor(const float* inp, const int* nrun,
+                                      int* out, int B, int S, int with_load,
+                                      cudaStream_t stream) {
+  if (B > 0) {
+    wsola_chain_floor_kernel<<<B, kThreads, 0, stream>>>(inp, nrun, out, S,
+                                                         with_load);
   }
   return static_cast<int>(cudaGetLastError());
 }

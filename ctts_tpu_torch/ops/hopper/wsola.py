@@ -46,3 +46,22 @@ def wsola_frames(inp, sq, input_count, nrun, hop: int, out_size: int):
            B, S, hop, out_size, stream_handle())
     launches += 1
     return acc, norm
+
+
+def chain_floor(inp, nrun, with_load: bool):
+    """Microbenchmark of the frame chain's latency floor on the card
+    (csrc/wsola.cu wsola_chain_floor_kernel): nrun[b] frames of only the
+    steps that wait on the previous frame's choice, plus the window load
+    from global memory when `with_load`. Not on the serving path, so
+    not counted in `launches`. inp [B, S] f32, nrun [B] i32 (CUDA) ->
+    [B] i32, the last tail index of each row."""
+    B, S = inp.shape
+    dev = inp.device
+    if dev.type != "cuda":
+        raise ValueError(f"chain_floor: needs a CUDA tensor, not {dev}")
+    check(inp, "inp", torch.float32, (B, S), dev)
+    check(nrun, "nrun", torch.int32, (B,), dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    launch("ctts_wsola_chain_floor", inp.data_ptr(), nrun.data_ptr(),
+           out.data_ptr(), B, S, int(with_load), stream_handle())
+    return out

@@ -104,7 +104,7 @@ def _corr(cands, tail, sq1, sq2):
 
 
 def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
-                       out_size: int):
+                       out_size: int, searched: dict | None = None):
     """The WSOLA frame chain, plain PyTorch, batched over sentences.
 
     inp [B, S] f32 int16-valued, sq = energy_table(inp), input_count
@@ -118,13 +118,18 @@ def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
     clamped into [0, input_count-FRAME], Hann-windowed and truncated,
     and added to acc (and the window to norm) at k·hop.
     Returns the OLA accumulators (acc, norm) [B, out_size] f32: acc
-    holds exact integer sums awaiting one wrap16."""
+    holds exact integer sums awaiting one wrap16. A `searched` dict
+    receives the number of valid coarse and fine candidates the frames
+    that run evaluate (the work these inputs need)."""
     B, S = inp.shape
     dev = inp.device
     acc = torch.zeros(B, out_size, dtype=F32, device=dev)
     norm = torch.zeros(B, out_size, dtype=F32, device=dev)
     K = int(nrun.max()) if B else 0
+    n_c = n_f = 0
     if K <= 0:
+        if searched is not None:
+            searched.update(coarse=0, fine=0)
         return acc, norm
     window = hann(FRAME, dev)
     # Padded coordinates: padded position p is input position
@@ -168,6 +173,10 @@ def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
             corr_f = torch.where(ok, corr_f, -torch.inf)
             best_f, bf = _first_argmax(corr_f)
             off = torch.where(best_f > best, best_off + rel[bf], best_off)
+            if searched is not None:
+                live = (k < nrun)[:, None]
+                n_c = n_c + (valid(nominal, j_c[None, :]) & live).sum()
+                n_f = n_f + (ok & live).sum()
         actual = nominal + off
         actual = torch.where(actual + FRAME > ic[:, 0], ic[:, 0] - FRAME,
                              actual)
@@ -180,6 +189,8 @@ def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
                                               0.0)
         norm[:, at] = norm[:, at] + torch.where(run, window, 0.0)
         qo = torch.where(run[:, 0], new_qo, qo)
+    if searched is not None:
+        searched.update(coarse=int(n_c), fine=int(n_f))
     return acc, norm
 
 

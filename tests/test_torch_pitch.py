@@ -75,6 +75,28 @@ def test_estimate_pitch_batch_bit_equal(seg_data, backend):
     assert (got.numpy() > 0).sum() >= 8        # voiced rows are exercised
 
 
+def test_library_yardstick_equals_plain(seg_data):
+    """chip_smoke.py times one f64 grouped conv1d as the library call
+    that computes pitch_corr; it gives the same f32 bits."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    segs, counts = seg_data
+    ana = np.minimum(220, counts - np.minimum(275, counts // 2))
+    ana[0] = -5                                 # clamped to 0, as the kernel
+    seg_t = torch.as_tensor(segs)
+    ana_t = torch.as_tensor(ana.astype(np.int32))
+    got = chip_smoke.pitch_conv(torch, seg_t, ana_t)()
+    want = hpitch.pitch_corr_plain(seg_t, ana_t)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(seg_data, cuda_device):
     segs, counts = seg_data

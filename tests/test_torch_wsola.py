@@ -231,6 +231,75 @@ def test_wrapper_takes_plain_only_on_cpu():
     assert hwsola.launches == before
 
 
+def _valid_positions(count, nrun, js):
+    """Candidates at window indices js that lie inside [0, count), over
+    the frames k = 1..nrun-1 that search."""
+    k = np.arange(1, max(nrun, 1))[:, None]
+    pos = k * tw.AHOP + np.asarray(js)[None, :] - tw.MAX_SHIFT
+    return int(((pos >= 0) & (pos + tw.FRAME <= count)).sum())
+
+
+def test_searched_counts_the_valid_candidates():
+    """The plain chain's candidate counts (the work chip_smoke.py
+    bounds): valid coarse candidates in closed form, and on a silent
+    row the fine ones too (every correlation is 0, so the earliest coarse
+    candidate, offset -128, wins and only +1..+3 lie in the window)."""
+    hop = tw.synthesis_hop_for_speed(1.5)
+    counts = [3000, 4096, 400, 1800, 0, 2500]
+    kinds = ["tonal", "noise", "tonal", "periodic", "tonal", "tonal"]
+    rows = [_row(k, c, 60 + i) for i, (k, c) in enumerate(zip(kinds, counts))]
+    rows[-1][:] = 0.0
+    inp = torch.as_tensor(np.stack(rows))
+    ic = torch.tensor(counts, dtype=torch.int32)
+    nrun = tw.run_counts(ic, S, OUT_SIZE, hop)
+    sq = tw.energy_table(inp)
+    searched = {}
+    acc, norm = tw.wsola_frames_plain(inp, sq, ic, nrun, hop, OUT_SIZE,
+                                      searched=searched)
+    want = tw.wsola_frames_plain(inp, sq, ic, nrun, hop, OUT_SIZE)
+    assert torch.equal(acc, want[0]) and torch.equal(norm, want[1])
+    per_row = []
+    for b in range(len(counts)):
+        d = {}
+        tw.wsola_frames_plain(inp[b:b + 1], sq[b:b + 1], ic[b:b + 1],
+                              nrun[b:b + 1], hop, OUT_SIZE, searched=d)
+        per_row.append(d)
+        nr = int(nrun[b])
+        assert d["coarse"] == _valid_positions(
+            counts[b], nr, 4 * np.arange(tw.NCOARSE)), b
+        assert 0 <= d["fine"] <= 6 * max(nr - 1, 0), b
+    assert per_row[-1]["fine"] == 3 * (int(nrun[-1]) - 1) > 0
+    assert per_row[4] == {"coarse": 0, "fine": 0}
+    for key in ("coarse", "fine"):
+        assert searched[key] == sum(d[key] for d in per_row)
+
+
+def test_chain_floor_needs_the_card():
+    from ctts_tpu_torch.ops.hopper import wsola as hwsola
+
+    inp = torch.zeros(2, S)
+    nrun = torch.tensor([3, 0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        hwsola.chain_floor(inp, nrun, False)
+
+
+@pytest.mark.cuda
+def test_chain_floor_runs_on_card(cuda_device):
+    """The latency-floor microbenchmark launches and ends each row on a
+    tail index inside the window (the start index when nrun = 0)."""
+    from ctts_tpu_torch.ops.hopper import wsola as hwsola
+
+    inp = torch.as_tensor(np.stack([_row("tonal", S, 5), _row("noise", S, 6)]),
+                          device=cuda_device)
+    nrun = torch.tensor([20, 0], dtype=torch.int32, device=cuda_device)
+    before = hwsola.launches
+    for with_load in (False, True):
+        out = hwsola.chain_floor(inp, nrun, with_load).cpu()
+        assert 0 <= int(out[0]) <= 2 * tw.MAX_SHIFT
+        assert int(out[1]) == tw.MAX_SHIFT
+    assert hwsola.launches == before
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_device):
     """The Hopper kernel equals the plain chain bit for bit on the
