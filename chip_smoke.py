@@ -10,11 +10,16 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
   3. IEEE division and sqrt on the card against numpy, bit for bit;
   4. each kernel against its plain PyTorch version on the card, at the
      serving bucket's shapes (WSOLA at speeds 1.5 and 0.5, and for one
-     sentence at 1.5), with both
+     sentence at 1.5; compose with rows where 3 units cover one stretch
+     and cf > n_eff), with both
      median times (CUDA events), the least time the card could take
      (bound) and, where one PyTorch call computes the same function,
-     that call's time; for WSOLA also the latency floor of its frame
-     chain (a microbenchmark of the chain's dependent steps);
+     that call's time; for WSOLA also each frame's chosen position
+     against the plain chain's, and for every design of its decide
+     launch (ops/hopper/wsola.py VARIANTS) that launch's time, its
+     positions against the plain chain's, and the latency floor of the
+     frame chain (the decide launch with the window already in shared
+     memory);
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA),
      each with every kernel's launch count, the output checked against
@@ -178,6 +183,13 @@ def kernel_inputs(np):
     cf_in = rng.integers(0, CFMAX + 1, (B, U)).astype(np.int32)
     n_eff = rng.integers(CFMAX + 1, UBUF + 1, (B, U)).astype(np.int32)
     n_eff[:, -3:] = 0                                   # inactive slots
+    # Rows 0-3: units 0-2 all cover [off0 + 600, off0 + 4000), and unit
+    # 4's crossfade is longer than the unit.
+    base_off[:4, 1] = base_off[:4, 0] + 300
+    base_off[:4, 2] = base_off[:4, 0] + 600
+    n_eff[:4, :3] = 4000
+    n_eff[:4, 4] = 600
+    cf_in[:4, 4] = 1000
     a_c = rng.integers(0, 2 * CFMAX + 1, (B, U)).astype(np.int32)
     contrib = np.trunc(rng.uniform(-8000, 8000, (B, U, UBUF))
                        ).astype(np.float32)
@@ -315,6 +327,11 @@ def check_kernels(torch, np, hopper) -> dict:
     compose_work = bound(
         4 * (ne.sum() + cf.sum()) + 4 * 4 * B * U
         + 4 * (B * TOT + B * U * (512 + CFMAX)), float(2 * cf.sum()))
+    # The buffer's write alone: a zero fill of its bytes (context for
+    # compose, whose bound is mostly this write).
+    fill = torch.empty(B, TOT, dtype=torch.float32, device=dev)
+    compose_work["zero_fill_ms"] = time_ms(fill.zero_, 20)
+    del fill
     compact_work = bound(2 * bufs.nbytes + 3 * starts.nbytes, 0.0)
     lv = ins["assemble"][2].astype(np.int64)
     assemble_work = bound(4 * lv.sum() + 2 * offsets.nbytes + 4 * B * OUTW,
@@ -377,25 +394,47 @@ def check_kernels(torch, np, hopper) -> dict:
         nr = nrun.cpu().numpy()
         cnt = ins["wsola"][1][rows]
         args = (sent, sq, counts, nrun, hop, out_size)
-        searched = {}
-        tw.wsola_frames_plain(*args, searched=searched)
+        searched, chosen = {}, {}
+        tw.wsola_frames_plain(*args, searched=searched, choices=chosen)
+        steps = tw.max_steps_for(SMAX, out_size, hop)
+        # Every design of the decide launch: its positions, its time and
+        # its latency floor.
+        designs = {}
+        for v in hopper.wsola.VARIANTS:
+            dec = (sent, sq, counts, nrun, steps)
+            pos = hopper.wsola.decide(*dec, True, v)
+            if not torch.equal(pos, chosen["pos"]):
+                bad = int((pos != chosen["pos"]).sum())
+                raise RuntimeError(f"wsola {tag} decide {v}: {bad} chosen "
+                                   "positions differ from the plain chain")
+            designs[v] = {
+                "decide_ms": time_ms(
+                    lambda dec=dec, v=v: hopper.wsola.decide(*dec, True, v),
+                    10),
+                "floor_ms": time_ms(
+                    lambda dec=dec, v=v: hopper.wsola.chain_floor(*dec, v),
+                    10)}
         work = bound(
             2 * 4 * np.minimum(cnt, SMAX).astype(np.int64).sum()
             + 4 * 512 + 2 * 4 * len(cnt) * out_size,
             wsola_ops(searched, nr))
-        # The chain's latency floor: its dependent steps alone, without
-        # and with the per-frame window load (csrc/wsola.cu).
+        served = designs[hopper.wsola.VARIANT]
         work.update(speed=speed, hop=hop, out_size=out_size,
                     max_nrun=int(nr.max()), frames=int(nr.sum()),
-                    candidates=searched,
-                    floor_ms=time_ms(lambda: hopper.wsola.chain_floor(
-                        sent, nrun, False), 10),
-                    floor_load_ms=time_ms(lambda: hopper.wsola.chain_floor(
-                        sent, nrun, True), 10))
+                    candidates=searched, design=hopper.wsola.VARIANT,
+                    decide_ms=served["decide_ms"],
+                    floor_ms=served["floor_ms"], designs=designs)
+
+        def with_choices(fn, args):
+            def call():
+                ch = {}
+                acc, norm = fn(*args, choices=ch)
+                return acc, norm, ch["pos"]
+            return call
+
         cases[f"wsola_frames {tag}"] = (
-            lambda args=args: hopper.wsola.wsola_frames(*args),
-            lambda args=args: tw.wsola_frames_plain(*args),
-            10, 3, work, None)
+            with_choices(hopper.wsola.wsola_frames, args),
+            with_choices(tw.wsola_frames_plain, args), 10, 3, work, None)
 
     results = {}
     for name, (kern, plain, reps, plain_reps, work, library) in cases.items():

@@ -5,306 +5,588 @@
 // _make_batch_kernel :404) and :573 wsola_frames (body _make_kernel
 // :360). The TPU kernels get exact correlations out of bf16 MXU passes
 // (hi/lo splits, stride-4 circulants, TwoSum) and run S sentences in
-// lockstep to hide latency; here one block runs one sentence's chain to
-// its own run count, for k < nrun in frame order:
-//   1. tail = the 384 samples at the previous chosen position + AHOP;
-//   2. coarse search over offsets -128..128 step 4: num = the exact
-//      integer sum of tail * candidate (int32 products, int64 sums,
-//      rounded once with __ll2float_rn), sq1/sq2 from the exact energy
-//      table, corr = denom < 1 ? 0 : num / denom with denom =
-//      sqrt(sq1 * sq2) -- a separate f32 multiply, then __fsqrt_rn and
-//      __fdiv_rn, correctly rounded like XLA:CPU and the NumPy oracle.
-//      Invalid candidates are -inf (and skipped); earliest max wins;
-//      none valid -> offset 0, best -2;
-//   3. fine search +-1..3 around it, taken only on a strict '>';
-//   4. offset 0 at k = 0; clamp the frame into [0, input_count - 512];
-//   5. trunc(frame * hann) added to acc and hann to norm at k * hop.
-// The OLA adds of frame k finish before frame k+1 starts
-// (__syncthreads), so every output position sums its frames in
-// ascending k from 0.0f -- the Pallas kernel's order. acc holds exact
-// integers (< 2^19); the caller wraps them to int16 once.
+// lockstep to hide latency. Here the work is split in two launches:
+//
+// decide: one block per sentence runs its chain of frames k < nrun and
+//   writes only each frame's chosen input position to pos [B, max_steps]
+//   (-1 past nrun). Frame k's tail is the 384 samples at the previous
+//   chosen position + AHOP; the coarse search takes the earliest max of
+//   the normalized correlation over offsets -128..128 step 4 (invalid
+//   candidates skipped; none valid -> offset 0, best -2); the fine
+//   search tries +-1..3 around it and moves only on a strict '>'; k = 0
+//   takes offset 0; the frame is clamped into [0, input_count - 512].
+//   num is the exact integer sum of tail * candidate, rounded once with
+//   __ll2float_rn; denom = sqrt(sq1 * sq2) is a separate f32 multiply,
+//   then __fsqrt_rn and __fdiv_rn (correctly rounded, like XLA:CPU and
+//   the NumPy oracle); corr = denom < 1 ? 0 : num / denom.
+// emit: one thread per output sample adds its <= ceil(512 / hop) frames
+//   in ascending k from 0.0f -- trunc(x * hann) to acc and hann to
+//   norm, each multiply and add rounded apart (--fmad=false) -- and
+//   writes both once. That is the add sequence of the Pallas kernel and
+//   of the plain version, so the bits are the same. acc holds exact
+//   integers (< 2^19); the caller wraps them to int16 once.
 //
 // Bound on this card: a chain of up to ~894 dependent frames per
-// sentence (max_steps at SMAX 114688), ~71 x 384 multiply-adds and 512
-// output updates each: latency, not bytes or operations. One block per
-// sentence (B = 128 is one wave on 132 SMs); the 768-sample window of a
-// step sits in shared memory as int32; one warp per candidate (16
-// warps: the 65 coarse candidates in 5 rounds, the 6 fine ones in one).
-// Simple for now: no prefetch of the next step's window or energies,
-// acc/norm read-modify-written in global memory (L2), no TMA.
+// sentence (max_steps at SMAX 114688), 71 x 384 multiply-adds each:
+// latency, not bytes or operations. What the decide block does about it:
+//   - nothing in the chain waits on memory. The sentence streams through
+//     a 2048-sample ring in shared memory (samples as T, energies as
+//     f32): every 4 frames the block issues cp.async for the 512 samples
+//     and energies it needs 4 frames later, and converts the staged
+//     samples during the 4th frame, so each search reads only shared
+//     memory;
+//   - the 65 coarse candidates are scored in one round: warp w takes C
+//     neighbouring candidates and each lane a run of 12 tail samples, so
+//     a lane's 12 + 4(C-1) window samples serve C candidates. The served
+//     design (C = 5, 13 warps) reads the window as byte planes and scores
+//     with dp4a (see kBytes); the lane sums are added across the warp
+//     exactly by 32-bit redux.sync adds;
+//   - two block barriers a frame: each warp posts its best candidate as
+//     one 64-bit key (order-preserving value bits, then the negated
+//     index, so a max is the earliest max), and after each barrier every
+//     warp reads the keys (a lane each, two redux.sync max) and takes the
+//     decision itself;
+//   - the OLA is off the chain (emit).
+// The designs compared (ops/hopper/wsola.py VARIANTS, timed by
+// chip_smoke.py phase 4): i8_c5, served; i64_c5 and i64_c3, an int32
+// ring and int64 multiply-adds with C = 5 (13 warps) or 3 (22 warps);
+// i64_c17, 4 warps that each then run the fine search from their own
+// registers (one barrier a frame); f64_c5, an f64 ring and f64 fused
+// multiply-adds (exact on these integers).
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 namespace {
 
 constexpr int kFrame = 512;
 constexpr int kAhop = 128;
-constexpr int kOverlap = kFrame - kAhop;            // 384
 constexpr int kMaxShift = 128;
-constexpr int kWin = kFrame + 2 * kMaxShift;        // 768
 constexpr int kNCoarse = 65;                        // -128..128 step 4
 constexpr int kNFine = 6;                           // -3..3 without 0
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kSpan = 12;                           // 384 tail samples / 32 lanes
+constexpr int kRing = 2048;
+constexpr int kMask = kRing - 1;
+constexpr int kChunk = 512;                         // samples per prefetch
+constexpr int kChunkFrames = kChunk / kAhop;        // 4
+// Frame k issues the chunk [k*AHOP + kLead, + kChunk) when k % 4 == 0;
+// frames k..k+3 read [k*AHOP - 128, k*AHOP + 1024), which the ring held
+// already, and the ring's 2048 slots cover both.
+constexpr int kLead = 1024;
+constexpr int kEmitThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+template <typename T>
+struct Sum;
+template <>
+struct Sum<int> {
+  using type = long long;
+};
+template <>
+struct Sum<double> {
+  using type = double;
+};
+
+__device__ __forceinline__ void mac(long long& s, int w, int t) {
+  s += static_cast<long long>(w) * t;  // |w * t| <= 2^30
+}
+__device__ __forceinline__ void mac(double& s, double w, double t) {
+  s = fma(w, t, s);  // exact: every product and partial sum < 2^53
+}
+__device__ __forceinline__ long long exact(long long s) { return s; }
+__device__ __forceinline__ long long exact(double s) {
+  return __double2ll_rn(s);
 }
 
-// Normalized correlation of win[j, j + 384) with the tail; one warp,
-// every lane returns the result.
-__device__ __forceinline__ float corr_at(const int* win, const int* tail,
-                                         int j, float sq1, float sq2,
-                                         int lane) {
-  long long s = 0;
-  for (int i = lane; i < kOverlap; i += 32) {
-    s += static_cast<long long>(win[j + i] * tail[i]);  // |.| <= 2^30
+// Four samples at ring index a, a multiple of 4 (one aligned run that
+// never wraps).
+__device__ __forceinline__ void load4(const int* ring, int a, int* v) {
+  const int4 q = *reinterpret_cast<const int4*>(ring + (a & kMask));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const double* ring, int a, double* v) {
+  const double2* p = reinterpret_cast<const double2*>(ring + (a & kMask));
+  const double2 q0 = p[0];
+  const double2 q1 = p[1];
+  v[0] = q0.x;
+  v[1] = q0.y;
+  v[2] = q1.x;
+  v[3] = q1.y;
+}
+
+template <int kShift, typename T>
+__device__ __forceinline__ void take_span(const T* v, T* t) {
+#pragma unroll
+  for (int q = 0; q < kSpan; ++q) t[q] = v[q + kShift];
+}
+
+// The kSpan samples at ring index a (any alignment; a & 3 is the same in
+// every lane of the warp): four aligned loads and a shift.
+template <typename T>
+__device__ __forceinline__ void load_span(const T* ring, int a, T* t) {
+  const int s = a & 3;
+  T v[kSpan + 4];
+#pragma unroll
+  for (int q = 0; q < kSpan + 4; q += 4) load4(ring, a - s + q, v + q);
+  switch (s) {
+    case 0: take_span<0>(v, t); break;
+    case 1: take_span<1>(v, t); break;
+    case 2: take_span<2>(v, t); break;
+    default: take_span<3>(v, t); break;
   }
-  s = warp_sum(s);
-  const float num = __ll2float_rn(s);
-  const float denom = __fsqrt_rn(__fmul_rn(sq1, sq2));
-  return denom < 1.0f ? 0.0f : __fdiv_rn(num, denom);
+}
+
+// Exact sum over the warp of lane values below 2^35 in magnitude: the
+// low 16 bits and the rest are each added by one redux.sync (sums below
+// 2^21 and 2^24), then joined.
+__device__ __forceinline__ long long warp_sum(long long s) {
+  const int lo = static_cast<int>(s & 0xffff);
+  const int hi = static_cast<int>(s >> 16);
+  return static_cast<long long>(__reduce_add_sync(kFull, hi)) * 65536 +
+         __reduce_add_sync(kFull, lo);
+}
+
+// corr = denom < 1 ? 0 : num / denom, denom = sqrt(sq1 * sq2); the
+// denominator does not wait on the sums, so it is taken first.
+__device__ __forceinline__ float denom_of(float sq1, float sq2) {
+  return __fsqrt_rn(__fmul_rn(sq1, sq2));
+}
+__device__ __forceinline__ float corr(long long num, float denom) {
+  return denom < 1.0f ? 0.0f : __fdiv_rn(__ll2float_rn(num), denom);
+}
+
+// Order-preserving key of a finite float (never 0; -0 counts as +0).
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float order_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// 64-bit key of candidate `index` with 32-bit value key v (0: none):
+// the max over keys is the largest value at the earliest index.
+__device__ __forceinline__ unsigned long long cand_key(unsigned v,
+                                                       unsigned index) {
+  return v ? (static_cast<unsigned long long>(v) << 32) | (kFull - index)
+           : 0ull;
+}
+
+// Max of keys[0..n) (n <= 32), read by every lane of the warp: one load
+// a lane, then the high and the low words each by one redux.sync.
+__device__ __forceinline__ unsigned long long max_key(
+    const unsigned long long* keys, int n, int lane) {
+  const unsigned long long mine = lane < n ? keys[lane] : 0ull;
+  const unsigned hi = static_cast<unsigned>(mine >> 32);
+  const unsigned top = __reduce_max_sync(kFull, hi);
+  const unsigned lo =
+      __reduce_max_sync(kFull, hi == top ? static_cast<unsigned>(mine) : 0u);
+  return (static_cast<unsigned long long>(top) << 32) | lo;
 }
 
 // Candidate at window index j (offset j - 128) is valid when its frame
-// lies inside [0, ic).
-__device__ __forceinline__ bool valid_at(int nominal, int j, int ic) {
-  const int pos = nominal + j - kMaxShift;
+// lies inside [0, ic); `base` is the input position of window index 0.
+__device__ __forceinline__ bool valid_at(int base, int j, int ic) {
+  const int pos = base + j;
   return pos >= 0 && pos + kFrame <= ic;
 }
 
-__global__ void __launch_bounds__(kThreads)
-wsola_frames_kernel(const float* __restrict__ inp,
+__device__ __forceinline__ void cp_async4(void* smem, const float* gmem,
+                                          int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Byte planes of 4 int16 samples: the low bytes (unsigned) and the high
+// bytes (signed), v = 256 * hi + lo.
+__device__ __forceinline__ unsigned plane_lo(int v0, int v1, int v2, int v3) {
+  return __byte_perm(__byte_perm(v0, v1, 0x0040), __byte_perm(v2, v3, 0x0040),
+                     0x5410);
+}
+__device__ __forceinline__ unsigned plane_hi(int v0, int v1, int v2, int v3) {
+  return __byte_perm(__byte_perm(v0, v1, 0x0051), __byte_perm(v2, v3, 0x0051),
+                     0x5410);
+}
+
+// Four-byte dot products, signed (s) or unsigned (u) per operand.
+__device__ __forceinline__ int dp4a_ss(unsigned a, unsigned b, int c) {
+  return __dp4a(static_cast<int>(a), static_cast<int>(b), c);
+}
+__device__ __forceinline__ int dp4a_su(unsigned a, unsigned b, int c) {
+  int d;
+  asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ int dp4a_us(unsigned a, unsigned b, int c) {
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ int dp4a_uu(unsigned a, unsigned b, int c) {
+  return static_cast<int>(__dp4a(a, b, static_cast<unsigned>(c)));
+}
+
+template <int C>
+constexpr int decide_threads() {
+  return 32 * ((kNCoarse + C - 1) / C);
+}
+
+// kPrefetch = false is the chain's latency floor (a microbenchmark, not
+// on the serving path): the ring is filled once, nothing is fetched
+// during the chain, and every frame searches whatever the ring holds at
+// its indices -- the dependent steps alone.
+// kBytes (T = int): the coarse search reads byte planes of the window
+// (a ring of 4-sample groups beside the int32 ring) and scores with
+// dp4a: w * t = 256 (256 hi*hi + hi*lo + lo*hi) + lo*lo, both sums
+// exact in int32 over all 384 samples.
+template <typename T, int C, bool kBytes, bool kPrefetch>
+__global__ void __launch_bounds__(decide_threads<C>())
+wsola_decide_kernel(const float* __restrict__ inp,
                     const float* __restrict__ sq,
                     const int* __restrict__ input_count,
-                    const int* __restrict__ nrun,
-                    const float* __restrict__ window,
-                    float* __restrict__ acc, float* __restrict__ norm,
-                    int S, int hop, int out_size) {
-  __shared__ int win[kWin];
-  __shared__ float hann[kFrame];
-  __shared__ float corr_c[kNCoarse];
-  __shared__ float corr_f[kNFine];
-  __shared__ int s_best_off;
-  __shared__ float s_best;
-  __shared__ int s_qo;
+                    const int* __restrict__ nrun, int* __restrict__ pos,
+                    int S, int max_steps) {
+  using Acc = typename Sum<T>::type;
+  constexpr int kWarps = (kNCoarse + C - 1) / C;
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kWinLen = kSpan + 4 * (C - 1);
+  // Solo (at most 4 warps): every warp runs the fine search itself, so a
+  // frame has one barrier. Else six warps score a fine candidate each
+  // and a second barrier publishes them.
+  constexpr bool kSolo = kWarps <= 4;
+  __shared__ __align__(16) T ring[kRing];
+  __shared__ float ering[kRing];
+  __shared__ float stage[kChunk];
+  __shared__ unsigned long long coarse_key[2][kWarps];  // by frame parity
+  __shared__ unsigned long long fine_key[kNFine];
+  constexpr int kGroups = kBytes ? kRing / 4 : 1;
+  constexpr int kGMask = kGroups - 1;
+  __shared__ unsigned plane_h[kGroups];
+  __shared__ unsigned plane_l[kGroups];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int b = blockIdx.x;
   const float* x = inp + static_cast<size_t>(b) * S;
-  const float* sqb = sq + static_cast<size_t>(b) * S;
-  float* ab = acc + static_cast<size_t>(b) * out_size;
-  float* nb = norm + static_cast<size_t>(b) * out_size;
+  const float* e = sq + static_cast<size_t>(b) * S;
+  int* out = pos + static_cast<size_t>(b) * max_steps;
   const int ic = min(input_count[b], S);
   const int nr = nrun[b];
 
-  for (int p = tid; p < out_size; p += kThreads) {
-    ab[p] = 0.0f;
-    nb[p] = 0.0f;
+  // The 4 samples of input positions p0 .. p0 + 3 (p0 a multiple of 4)
+  // into the ring (and its byte planes).
+  auto put4 = [&](int p0, const int* v) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ring[(p0 + r) & kMask] = static_cast<T>(v[r]);
+    if constexpr (kBytes) {
+      plane_l[(p0 >> 2) & kGMask] = plane_lo(v[0], v[1], v[2], v[3]);
+      plane_h[(p0 >> 2) & kGMask] = plane_hi(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  for (int k = nr + tid; k < max_steps; k += kThreads) out[k] = -1;
+  const int fill = kPrefetch ? kLead + kMaxShift : kRing;
+  for (int g = tid; g < fill / 4; g += kThreads) {  // 4-sample groups
+    const int p0 = 4 * g - kMaxShift;
+    int v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int p = p0 + r;
+      const bool in = p >= 0 && p < S;
+      v[r] = in ? static_cast<int>(x[p]) : 0;
+      ering[p & kMask] = in ? e[p] : 0.0f;
+    }
+    put4(p0, v);
   }
-  for (int i = tid; i < kFrame; i += kThreads) hann[i] = window[i];
   __syncthreads();
 
-  int qo_prev = 0;  // window index of the previous frame's tail
+  // The prefetch runs on the threads from kFetch0 on: past the fine
+  // search's warps, which it would delay. The chunk issued 3 frames ago:
+  // each of them converts the groups it fetched; the next barrier
+  // publishes them (and the energies).
+  constexpr int kFetch0 = kSolo ? 0 : 32 * kNFine;
+  auto land_chunk = [&](int k) {
+    cp_async_wait_all();
+    const int p0 = (k - (kChunkFrames - 1)) * kAhop + kLead;
+    for (int g = tid - kFetch0; g >= 0 && g < kChunk / 4;
+         g += kThreads - kFetch0) {
+      int v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[r] = static_cast<int>(stage[4 * g + r]);
+      put4(p0 + 4 * g, v);
+    }
+  };
+
+  int qo = kMaxShift;  // window index of the previous frame's tail
   for (int k = 0; k < nr; ++k) {
     const int nominal = k * kAhop;
-    for (int j = tid; j < kWin; j += kThreads) {
-      const int p = nominal - kMaxShift + j;
-      win[j] = (p >= 0 && p < S) ? static_cast<int>(x[p]) : 0;
+    const int base = nominal - kMaxShift;
+    const bool lands = kPrefetch && k % kChunkFrames == kChunkFrames - 1;
+    if (kPrefetch && k % kChunkFrames == 0) {
+      const int p0 = nominal + kLead;
+      for (int g = tid - kFetch0; g >= 0 && g < kChunk / 4;
+           g += kThreads - kFetch0) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int p = p0 + 4 * g + r;
+          const bool in = p < S;
+          cp_async4(&stage[4 * g + r], x + (in ? p : 0), in ? 4 : 0);
+          cp_async4(&ering[p & kMask], e + (in ? p : 0), in ? 4 : 0);
+        }
+      }
     }
-    __syncthreads();
 
+    int off = 0;
     if (k > 0) {
-      const int* tail = win + qo_prev;
-      const int tpos = nominal - kMaxShift + qo_prev;
-      const float sq2 = (tpos >= 0 && tpos < S) ? sqb[tpos] : 0.0f;
-      for (int c = warp; c < kNCoarse; c += kWarps) {
-        const int j = 4 * c;
-        float v = -CUDART_INF_F;
-        if (valid_at(nominal, j, ic)) {
-          v = corr_at(win, tail, j, sqb[nominal - kMaxShift + j], sq2, lane);
+      const int tpos = base + qo;
+      const float sq2 = ering[tpos & kMask];
+      T t[kSpan];  // the tail: a run of kSpan samples a lane
+      load_span(ring, tpos + kSpan * lane, t);
+      T tf[kSpan];  // the tail, lane-interleaved (fine search, not solo)
+      if (!kSolo && warp < kNFine) {
+#pragma unroll
+        for (int m = 0; m < kSpan; ++m) {
+          tf[m] = ring[(tpos + lane + 32 * m) & kMask];
         }
-        if (lane == 0) corr_c[c] = v;
       }
-      __syncthreads();
 
-      if (warp == 0) {  // earliest coarse max
-        float bv = -CUDART_INF_F;
-        int bi = kNCoarse;
-        for (int c = lane; c < kNCoarse; c += 32) {
-          const float v = corr_c[c];
-          if (v > bv || (v == bv && c < bi)) {
-            bv = v;
-            bi = c;
+      {  // coarse: candidates c0 .. c0 + C - 1 of this warp, one round
+        const int c0 = warp * C;
+        const int c = c0 + lane;  // lane d < C scores candidate c0 + d
+        const float den = denom_of(ering[(base + 4 * c) & kMask], sq2);
+        long long num = 0;
+        if constexpr (kBytes) {
+          constexpr int kG = kSpan / 4;  // tail groups a lane
+          unsigned th[kG], tl[kG], wh[kG + C - 1], wl[kG + C - 1];
+#pragma unroll
+          for (int u = 0; u < kG; ++u) {
+            th[u] = plane_hi(t[4 * u], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3]);
+            tl[u] = plane_lo(t[4 * u], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3]);
+          }
+          const int g0 = (base >> 2) + c0 + kG * lane;
+#pragma unroll
+          for (int u = 0; u < kG + C - 1; ++u) {
+            wh[u] = plane_h[(g0 + u) & kGMask];
+            wl[u] = plane_l[(g0 + u) & kGMask];
+          }
+#pragma unroll
+          for (int d = 0; d < C; ++d) {
+            int hh = 0, hl = 0, ll = 0;
+#pragma unroll
+            for (int u = 0; u < kG; ++u) {
+              hh = dp4a_ss(wh[d + u], th[u], hh);
+              hl = dp4a_su(wh[d + u], tl[u], hl);
+              hl = dp4a_us(wl[d + u], th[u], hl);
+              ll = dp4a_uu(wl[d + u], tl[u], ll);
+            }
+            // 256 hh + hl: |lane| <= 12 (2^14 * 256 + 2 * 128 * 255) and
+            // 32 lanes of it stay below 1.64e9 < 2^31.
+            const long long tot =
+                static_cast<long long>(__reduce_add_sync(kFull, hh * 256 + hl)) *
+                    256 +
+                __reduce_add_sync(kFull, ll);
+            if (lane == d) num = tot;
+          }
+        } else {
+          T w[kWinLen];
+#pragma unroll
+          for (int q = 0; q < kWinLen; q += 4) {
+            load4(ring, base + 4 * c0 + kSpan * lane + q, w + q);
+          }
+          Acc s[C];
+#pragma unroll
+          for (int d = 0; d < C; ++d) {
+            s[d] = Acc(0);
+#pragma unroll
+            for (int q = 0; q < kSpan; ++q) mac(s[d], w[4 * d + q], t[q]);
+          }
+#pragma unroll
+          for (int d = 0; d < C; ++d) {
+            const long long tot = warp_sum(exact(s[d]));
+            if (lane == d) num = tot;
           }
         }
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-          if (ov > bv || (ov == bv && oi < bi)) {
-            bv = ov;
-            bi = oi;
-          }
+        unsigned key = 0;
+        if (lane < C && c < kNCoarse && valid_at(base, 4 * c, ic)) {
+          key = order_key(corr(num, den));
         }
-        if (lane == 0) {
-          const bool none = bv == -CUDART_INF_F;
-          s_best_off = none ? 0 : 4 * bi - kMaxShift;
-          s_best = none ? -2.0f : bv;
-        }
+        const unsigned top = __reduce_max_sync(kFull, key);
+        const int first = __ffs(__ballot_sync(kFull, key == top)) - 1;
+        if (lane == 0) coarse_key[k & 1][warp] = cand_key(top, c0 + first);
       }
+      if (kSolo && lands) land_chunk(k);
       __syncthreads();
 
-      const int best_off = s_best_off;
-      if (warp < kNFine) {
-        const int rel = warp < 3 ? warp - 3 : warp - 2;
-        const int j = best_off + kMaxShift + rel;
-        float v = -CUDART_INF_F;
-        if (j >= 0 && j <= 2 * kMaxShift && valid_at(nominal, j, ic)) {
-          v = corr_at(win, tail, j, sqb[nominal - kMaxShift + j], sq2, lane);
-        }
-        if (lane == 0) corr_f[warp] = v;
-      }
-      __syncthreads();
-    }
+      const unsigned long long best = max_key(coarse_key[k & 1], kWarps, lane);
+      const int best_off =
+          best ? 4 * static_cast<int>(kFull - static_cast<unsigned>(best)) -
+                     kMaxShift
+               : 0;
+      const float best_v =
+          best ? order_value(static_cast<unsigned>(best >> 32)) : -2.0f;
+      // Fine candidate r (lane r of the solo search, warp r otherwise) is
+      // window index j = best_off + 128 + rel(r).
+      const int r = kSolo ? lane : warp;
+      const int j = best_off + kMaxShift + (r < 3 ? r - 3 : r - 2);
+      const bool fine_ok = r < kNFine && j >= 0 && j <= 2 * kMaxShift &&
+                           valid_at(base, j, ic);
+      const float fine_den = denom_of(ering[(base + j) & kMask], sq2);
+      off = best_off;
 
-    if (tid == 0) {
-      int off = 0;
-      if (k > 0) {
-        float bv = corr_f[0];
-        int bw = 0;
-        for (int w = 1; w < kNFine; ++w) {
-          if (corr_f[w] > bv) {
-            bv = corr_f[w];
-            bw = w;
+      if constexpr (kSolo) {
+        // A lane's 20 window samples from index best_off + 124 + 12 lane
+        // (aligned) hold its run of all six candidates.
+        T v[kSpan + 8];
+#pragma unroll
+        for (int q = 0; q < kSpan + 8; q += 4) {
+          load4(ring, base + best_off + kMaxShift - 4 + kSpan * lane + q,
+                v + q);
+        }
+        long long num = 0;
+#pragma unroll
+        for (int f = 0; f < kNFine; ++f) {
+          const int rel4 = f < 3 ? f + 1 : f + 2;  // rel + 4
+          Acc s = Acc(0);
+#pragma unroll
+          for (int q = 0; q < kSpan; ++q) mac(s, v[rel4 + q], t[q]);
+          const long long tot = warp_sum(exact(s));
+          if (lane == f) num = tot;
+        }
+        unsigned key = 0;
+        if (fine_ok) key = order_key(corr(num, fine_den));
+        const unsigned top = __reduce_max_sync(kFull, key);
+        if (top && order_value(top) > best_v) {
+          const int f = __ffs(__ballot_sync(kFull, key == top)) - 1;
+          off += f < 3 ? f - 3 : f - 2;
+        }
+      } else {
+        if (warp < kNFine) {  // fine: one candidate a warp
+          unsigned key = 0;
+          if (fine_ok) {
+            Acc s[2] = {Acc(0), Acc(0)};  // two chains of adds
+#pragma unroll
+            for (int m = 0; m < kSpan; ++m) {
+              mac(s[m % 2], ring[(base + j + lane + 32 * m) & kMask], tf[m]);
+            }
+            key = order_key(
+                corr(warp_sum(exact(s[0]) + exact(s[1])), fine_den));
           }
+          if (lane == 0) fine_key[warp] = cand_key(key, warp);
         }
-        off = s_best_off;
-        if (bv > s_best) off += bw < 3 ? bw - 3 : bw - 2;
-      }
-      int actual = nominal + off;
-      if (actual + kFrame > ic) actual = ic - kFrame;
-      actual = max(actual, 0);
-      s_qo = min(max(actual - nominal + kMaxShift, 0), 2 * kMaxShift);
-    }
-    __syncthreads();
+        if (lands) land_chunk(k);
+        __syncthreads();
 
-    const int qo = s_qo;
-    const int base = k * hop;
-    for (int i = tid; i < kFrame; i += kThreads) {
-      const int p = base + i;
-      if (p < out_size) {
-        const float c = truncf(__fmul_rn(static_cast<float>(win[qo + i]),
-                                         hann[i]));
-        ab[p] = __fadd_rn(ab[p], c);
-        nb[p] = __fadd_rn(nb[p], hann[i]);
+        const unsigned long long fine = max_key(fine_key, kNFine, lane);
+        if (fine &&
+            order_value(static_cast<unsigned>(fine >> 32)) > best_v) {
+          const int f = static_cast<int>(kFull - static_cast<unsigned>(fine));
+          off += f < 3 ? f - 3 : f - 2;
+        }
       }
     }
-    qo_prev = qo;
-    __syncthreads();
+
+    int actual = nominal + off;
+    if (actual + kFrame > ic) actual = ic - kFrame;
+    actual = max(actual, 0);
+    qo = min(max(actual - base, 0), 2 * kMaxShift);
+    if (tid == 0) out[k] = actual;
   }
+  if (kPrefetch) cp_async_wait_all();
 }
 
-// Latency floor of the frame chain (a microbenchmark; not on the
-// serving path). Per frame it keeps only the steps that wait on the
-// previous frame's choice: every warp scores one candidate against the
-// tail at the chosen index (12 int32 products a lane from shared
-// memory, an int64 warp sum, __fsqrt_rn and __fdiv_rn), warp 0 takes
-// the earliest max, six warps score the fine candidates, one thread
-// decides -- four block barriers. The kernel's frame adds four more
-// coarse rounds a warp, the window load and the OLA; with_load puts the
-// window load from global memory back. Block b runs nrun[b] frames and
-// writes its last tail index to out[b].
-__global__ void __launch_bounds__(kThreads)
-wsola_chain_floor_kernel(const float* __restrict__ inp,
-                         const int* __restrict__ nrun,
-                         int* __restrict__ out, int S, int with_load) {
-  __shared__ int win[kWin];
-  __shared__ float score[kWarps];
-  __shared__ int s_j;
-  __shared__ int s_qo;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const float* x = inp + static_cast<size_t>(blockIdx.x) * S;
-  const int nr = nrun[blockIdx.x];
-  const float sq = S > 0 ? 1.0f + fabsf(x[0]) : 1.0f;
-
-  int qo = kMaxShift;
-  for (int k = 0; k < nr; ++k) {
-    if (k == 0 || with_load) {
-      const int nominal = with_load ? k * kAhop : 0;
-      for (int j = tid; j < kWin; j += kThreads) {
-        const int p = nominal - kMaxShift + j;
-        win[j] = (p >= 0 && p < S) ? static_cast<int>(x[p]) : 0;
-      }
-      __syncthreads();
-    }
-    const int* tail = win + qo;
-    const float v = corr_at(win, tail, 4 * warp, sq, sq, lane);
-    if (lane == 0) score[warp] = v;
-    __syncthreads();
-
-    if (warp == 0) {
-      float bv = lane < kWarps ? score[lane] : -CUDART_INF_F;
-      int bi = lane;
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-        if (ov > bv || (ov == bv && oi < bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (lane == 0) s_j = 4 * bi;
-    }
-    __syncthreads();
-
-    if (warp < kNFine) {
-      const float f = corr_at(win, tail, s_j + warp, sq, sq, lane);
-      if (lane == 0) score[warp] = f;
-    }
-    __syncthreads();
-
-    if (tid == 0) {
-      int bw = 0;
-      for (int w = 1; w < kNFine; ++w) {
-        if (score[w] > score[bw]) bw = w;
-      }
-      s_qo = s_j + bw;
-    }
-    __syncthreads();
-    qo = s_qo;
+// One thread per output sample p of row b: the frames k < nrun with
+// k * hop <= p < k * hop + 512, in ascending k from 0.0f.
+__global__ void __launch_bounds__(kEmitThreads)
+wsola_emit_kernel(const float* __restrict__ inp, const int* __restrict__ pos,
+                  const int* __restrict__ nrun,
+                  const float* __restrict__ window, float* __restrict__ acc,
+                  float* __restrict__ norm, int S, int hop, int out_size,
+                  int max_steps) {
+  const int b = blockIdx.y;
+  const int p = blockIdx.x * kEmitThreads + threadIdx.x;
+  if (p >= out_size) return;
+  const float* x = inp + static_cast<size_t>(b) * S;
+  const int* ps = pos + static_cast<size_t>(b) * max_steps;
+  const int last = min(nrun[b] - 1, p / hop);
+  float a = 0.0f;
+  float n = 0.0f;
+  for (int k = p >= kFrame ? (p - kFrame) / hop + 1 : 0; k <= last; ++k) {
+    const int i = p - k * hop;
+    const float h = window[i];
+    a = __fadd_rn(a, truncf(__fmul_rn(truncf(x[ps[k] + i]), h)));
+    n = __fadd_rn(n, h);
   }
-  if (tid == 0) out[blockIdx.x] = qo;
+  const size_t o = static_cast<size_t>(b) * out_size + p;
+  acc[o] = a;
+  norm[o] = n;
+}
+
+template <typename T, int C, bool kBytes, bool kPrefetch>
+void launch_decide(const float* inp, const float* sq, const int* ic,
+                   const int* nrun, int* pos, int B, int S, int max_steps,
+                   cudaStream_t stream) {
+  wsola_decide_kernel<T, C, kBytes, kPrefetch>
+      <<<B, decide_threads<C>(), 0, stream>>>(
+      inp, sq, ic, nrun, pos, S, max_steps);
+}
+
+// variant: the index in ops/hopper/wsola.py VARIANTS (i64_c5, i64_c3,
+// f64_c5, i64_c17, i8_c5).
+int decide(const float* inp, const float* sq, const int* ic, const int* nrun,
+           int* pos, int B, int S, int max_steps, int variant, int prefetch,
+           cudaStream_t stream) {
+  if (B <= 0) return 0;
+  switch (variant * 2 + (prefetch ? 1 : 0)) {
+    case 0: launch_decide<int, 5, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 1: launch_decide<int, 5, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 2: launch_decide<int, 3, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 3: launch_decide<int, 3, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 4: launch_decide<double, 5, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 5: launch_decide<double, 5, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 6: launch_decide<int, 17, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 7: launch_decide<int, 17, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 8: launch_decide<int, 5, true, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    case 9: launch_decide<int, 5, true, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// inp, sq [B, S] f32; input_count, nrun [B] i32; window [512] f32
-// -> acc, norm [B, out_size] f32.
+// inp, sq [B, S] f32; input_count, nrun [B] i32; window [512] f32;
+// pos [B, max_steps] i32 scratch -> acc, norm [B, out_size] f32 (pos
+// holds each frame's chosen input position, -1 past nrun).
 extern "C" int ctts_wsola_frames(const float* inp, const float* sq,
                                  const int* input_count, const int* nrun,
-                                 const float* window, float* acc,
+                                 const float* window, int* pos, float* acc,
                                  float* norm, int B, int S, int hop,
-                                 int out_size, cudaStream_t stream) {
-  if (B > 0) {
-    wsola_frames_kernel<<<B, kThreads, 0, stream>>>(
-        inp, sq, input_count, nrun, window, acc, norm, S, hop, out_size);
-  }
+                                 int out_size, int max_steps, int variant,
+                                 cudaStream_t stream) {
+  const int rc = decide(inp, sq, input_count, nrun, pos, B, S, max_steps,
+                        variant, 1, stream);
+  if (rc != 0 || B <= 0) return rc;
+  const dim3 grid((out_size + kEmitThreads - 1) / kEmitThreads, B);
+  wsola_emit_kernel<<<grid, kEmitThreads, 0, stream>>>(
+      inp, pos, nrun, window, acc, norm, S, hop, out_size, max_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// inp [B, S] f32, nrun [B] i32 -> out [B] i32 (the chain floor above).
-extern "C" int ctts_wsola_chain_floor(const float* inp, const int* nrun,
-                                      int* out, int B, int S, int with_load,
-                                      cudaStream_t stream) {
-  if (B > 0) {
-    wsola_chain_floor_kernel<<<B, kThreads, 0, stream>>>(inp, nrun, out, S,
-                                                         with_load);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The decide launch alone -> pos [B, max_steps] i32; prefetch = 0 is the
+// chain's latency floor (above).
+extern "C" int ctts_wsola_decide(const float* inp, const float* sq,
+                                 const int* input_count, const int* nrun,
+                                 int* pos, int B, int S, int max_steps,
+                                 int variant, int prefetch,
+                                 cudaStream_t stream) {
+  return decide(inp, sq, input_count, nrun, pos, B, S, max_steps, variant,
+                prefetch, stream);
 }

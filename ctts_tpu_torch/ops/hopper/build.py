@@ -40,8 +40,9 @@ SIGNATURES = {
                      _I, _I, _I, _I, _I, _I, _P],
     "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ctts_wsola_chain_floor": [_P, _P, _P, _I, _I, _I, _P],
+    "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
+    "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

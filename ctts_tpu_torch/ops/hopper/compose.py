@@ -8,7 +8,8 @@ trunc(clip(trunc(cur * fo + x), -32768, 32767)) and the body up to
 n_eff is copied. With `export`, each unit's pre-merge pitch segment
 buf[off+cf-ana, +512) and energy tail buf[off+cf-CFMAX, off+cf) are
 returned as well. Inactive slots (n_eff == 0) change nothing and
-export zeros.
+export zeros. The kernel computes each position of the buffer as the
+walk over the units that cover it (csrc/compose.cu) and writes it once.
 """
 
 from __future__ import annotations
@@ -66,7 +67,9 @@ def compose_plain(contrib, fo, base_off, cf_in, n_eff, ana, TOT: int,
 def compose(contrib, fo, base_off, cf_in, n_eff, ana, TOT: int,
             export: bool):
     """contrib [B,U,UBUF], fo [B,U,CFMAX] f32; base_off, cf_in, n_eff,
-    ana [B,U] i32 -> (buf [B,TOT], seg [B,U,512], tail [B,U,CFMAX])."""
+    ana [B,U] i32 -> (buf [B,TOT], seg [B,U,512], tail [B,U,CFMAX]).
+    Without `export`, seg and tail are zeros (on the card, read-only
+    views of one zero)."""
     global launches
     if contrib.device.type == "cpu":
         return compose_plain(contrib, fo, base_off, cf_in, n_eff, ana, TOT,
@@ -81,9 +84,13 @@ def compose(contrib, fo, base_off, cf_in, n_eff, ana, TOT: int,
     for name, t in (("base_off", base_off), ("cf_in", cf_in),
                     ("n_eff", n_eff), ("ana", ana)):
         check(t, name, torch.int32, (B, U), dev)
-    buf = torch.zeros(B, TOT, dtype=torch.float32, device=dev)
-    seg = torch.zeros(B, U, SEGW, dtype=torch.float32, device=dev)
-    tail = torch.zeros(B, U, CFMAX, dtype=torch.float32, device=dev)
+    buf = torch.empty(B, TOT, dtype=torch.float32, device=dev)
+    if export:
+        seg = torch.empty(B, U, SEGW, dtype=torch.float32, device=dev)
+        tail = torch.empty(B, U, CFMAX, dtype=torch.float32, device=dev)
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        seg, tail = zero.expand(B, U, SEGW), zero.expand(B, U, CFMAX)
     launch("ctts_compose", contrib.data_ptr(), fo.data_ptr(),
            base_off.data_ptr(), cf_in.data_ptr(), n_eff.data_ptr(),
            ana.data_ptr(), buf.data_ptr(), seg.data_ptr(), tail.data_ptr(),

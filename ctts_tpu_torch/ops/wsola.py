@@ -5,9 +5,10 @@ sentence dimension. What is computed, not how the TPU computed it: the
 search numerators are exact int64 dot products (the JAX package's hi/lo
 bf16 splits, window stacks, one-hot picks and circulants compute the
 same integers), the candidate energies come from an exact sliding
-table, and the OLA adds run in frame order inside the frame chain.
-The chain is one Hopper kernel for a CUDA tensor (ops/hopper/wsola.py)
-and `wsola_frames_plain` below for a CPU tensor.
+table, and each output sample adds its frames in ascending frame order.
+The chain is a Hopper kernel for a CUDA tensor (ops/hopper/wsola.py:
+the decisions, then the overlap-add from the chosen positions) and
+`wsola_frames_plain` below for a CPU tensor.
 
 Exactness: every correlation numerator and energy is an exact integer
 (< 2^39), rounded to f32 once; sq1*sq2 is one f32 multiply, its root
@@ -104,7 +105,8 @@ def _corr(cands, tail, sq1, sq2):
 
 
 def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
-                       out_size: int, searched: dict | None = None):
+                       out_size: int, searched: dict | None = None,
+                       choices: dict | None = None):
     """The WSOLA frame chain, plain PyTorch, batched over sentences.
 
     inp [B, S] f32 int16-valued, sq = energy_table(inp), input_count
@@ -120,11 +122,16 @@ def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
     Returns the OLA accumulators (acc, norm) [B, out_size] f32: acc
     holds exact integer sums awaiting one wrap16. A `searched` dict
     receives the number of valid coarse and fine candidates the frames
-    that run evaluate (the work these inputs need)."""
+    that run evaluate (the work these inputs need), and a `choices` dict
+    receives pos [B, max_steps_for(S, out_size, hop)] i32, each frame's
+    chosen input position (-1 for the frames that do not run)."""
     B, S = inp.shape
     dev = inp.device
     acc = torch.zeros(B, out_size, dtype=F32, device=dev)
     norm = torch.zeros(B, out_size, dtype=F32, device=dev)
+    if choices is not None:
+        choices["pos"] = torch.full((B, max_steps_for(S, out_size, hop)), -1,
+                                    dtype=torch.int32, device=dev)
     K = int(nrun.max()) if B else 0
     n_c = n_f = 0
     if K <= 0:
@@ -184,6 +191,9 @@ def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
         new_qo = torch.clamp(new_qo, 0, 2 * MAX_SHIFT)  # rows past nrun
         frame = win.gather(1, new_qo[:, None] + i_fr).to(F32)
         run = (k < nrun)[:, None]
+        if choices is not None:
+            choices["pos"][:, k] = torch.where(
+                run[:, 0], torch.clamp(actual, min=0), -1).to(torch.int32)
         at = slice(k * hop, k * hop + FRAME)
         acc[:, at] = acc[:, at] + torch.where(run, trunc16(frame * window),
                                               0.0)

@@ -274,29 +274,85 @@ def test_searched_counts_the_valid_candidates():
         assert searched[key] == sum(d[key] for d in per_row)
 
 
+def _numpy_emit(inp, pos, nrun, hop):
+    """The overlap-add from the chosen positions, per output sample: the
+    frames k < nrun that cover it, added in ascending k from 0.0f."""
+    window = tw.hann(tw.FRAME, "cpu").numpy()
+    i = np.arange(tw.FRAME)
+    acc = np.zeros((inp.shape[0], OUT_SIZE), np.float32)
+    norm = np.zeros_like(acc)
+    for b in range(inp.shape[0]):
+        for k in range(int(nrun[b])):
+            frame = inp[b, pos[b, k] + i]
+            at = k * hop + i
+            acc[b, at] = acc[b, at] + np.trunc(frame * window)
+            norm[b, at] = norm[b, at] + window
+    return acc, norm
+
+
+@pytest.mark.parametrize("speed", [1.5, 0.5])
+def test_emit_from_choices_matches_plain(speed):
+    """The kernel's split: the chain's chosen positions alone, added per
+    output sample in ascending frame order, give the plain chain's
+    (acc, norm) bit for bit (hop 85 and 256; rows of length 0, 300 and
+    S)."""
+    hop = tw.synthesis_hop_for_speed(speed)
+    assert hop == {1.5: 85, 0.5: 256}[speed]
+    counts = [0, 300, S, S]
+    rows = [_row("tonal", 0, 1), _row("noise", 300, 2), _row("tonal", S, 3),
+            _row("periodic", S, 4)]
+    inp = torch.as_tensor(np.stack(rows))
+    ic = torch.tensor(counts, dtype=torch.int32)
+    nrun = tw.run_counts(ic, S, OUT_SIZE, hop)
+    sq = tw.energy_table(inp)
+    choices = {}
+    acc, norm = tw.wsola_frames_plain(inp, sq, ic, nrun, hop, OUT_SIZE,
+                                      choices=choices)
+    pos, nr = choices["pos"].numpy(), nrun.numpy()
+    assert pos.shape == (4, tw.max_steps_for(S, OUT_SIZE, hop))
+    assert pos.dtype == np.int32 and nr.tolist()[:2] == [0, 0] and nr[2] > 0
+    for b in range(4):
+        live = pos[b, :nr[b]]
+        assert (pos[b, nr[b]:] == -1).all()
+        assert ((live >= 0) & (live + tw.FRAME <= counts[b])).all()
+    want = _numpy_emit(inp.numpy(), pos, nr, hop)
+    assert np.array_equal(acc.numpy(), want[0])
+    assert np.array_equal(norm.numpy(), want[1])
+
+
 def test_chain_floor_needs_the_card():
     from ctts_tpu_torch.ops.hopper import wsola as hwsola
 
     inp = torch.zeros(2, S)
+    ic = torch.tensor([S, 0], dtype=torch.int32)
     nrun = torch.tensor([3, 0], dtype=torch.int32)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        hwsola.chain_floor(inp, nrun, False)
+        hwsola.chain_floor(inp, tw.energy_table(inp), ic, nrun, 8)
 
 
 @pytest.mark.cuda
 def test_chain_floor_runs_on_card(cuda_device):
-    """The latency-floor microbenchmark launches and ends each row on a
-    tail index inside the window (the start index when nrun = 0)."""
+    """The latency floor (every design) and the decide launch with its
+    prefetch launch and mark the frames past nrun with -1; with the
+    prefetch, the chosen positions are the plain chain's."""
     from ctts_tpu_torch.ops.hopper import wsola as hwsola
 
+    hop = tw.synthesis_hop_for_speed(1.5)
     inp = torch.as_tensor(np.stack([_row("tonal", S, 5), _row("noise", S, 6)]),
                           device=cuda_device)
+    ic = torch.tensor([S, S], dtype=torch.int32, device=cuda_device)
     nrun = torch.tensor([20, 0], dtype=torch.int32, device=cuda_device)
+    sq = tw.energy_table(inp)
+    steps = tw.max_steps_for(S, OUT_SIZE, hop)
+    choices = {}
+    tw.wsola_frames_plain(inp, sq, ic, nrun, hop, OUT_SIZE, choices=choices)
     before = hwsola.launches
-    for with_load in (False, True):
-        out = hwsola.chain_floor(inp, nrun, with_load).cpu()
-        assert 0 <= int(out[0]) <= 2 * tw.MAX_SHIFT
-        assert int(out[1]) == tw.MAX_SHIFT
+    for variant in hwsola.VARIANTS:
+        out = hwsola.chain_floor(inp, sq, ic, nrun, steps, variant).cpu()
+        assert (out[0, 20:] == -1).all() and (out[1] == -1).all()
+        assert ((out[0, :20] >= 0) & (out[0, :20] <= S - tw.FRAME)).all()
+        got = hwsola.decide(inp, sq, ic, nrun, steps, True, variant)
+        assert torch.equal(got, choices["pos"]), variant
     assert hwsola.launches == before
 
 
@@ -316,10 +372,14 @@ def test_kernel_matches_plain_on_card(cuda_device):
     nrun = tw.run_counts(ic, S, OUT_SIZE, hop)
     sq = tw.energy_table(inp)
     before = hwsola.launches
-    acc, norm = hwsola.wsola_frames(inp, sq, ic, nrun, hop, OUT_SIZE)
+    got, want = {}, {}
+    acc, norm = hwsola.wsola_frames(inp, sq, ic, nrun, hop, OUT_SIZE,
+                                    choices=got)
     assert hwsola.launches == before + 1
-    want = tw.wsola_frames_plain(inp, sq, ic, nrun, hop, OUT_SIZE)
-    assert torch.equal(acc, want[0]) and torch.equal(norm, want[1])
+    plain = tw.wsola_frames_plain(inp, sq, ic, nrun, hop, OUT_SIZE,
+                                  choices=want)
+    assert torch.equal(acc, plain[0]) and torch.equal(norm, plain[1])
+    assert torch.equal(got["pos"], want["pos"])
 
 
 @pytest.fixture
