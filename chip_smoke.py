@@ -15,11 +15,10 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      median times (CUDA events), the least time the card could take
      (bound) and, where one PyTorch call computes the same function,
      that call's time; for WSOLA also each frame's chosen position
-     against the plain chain's, and for every design of its decide
-     launch (ops/hopper/wsola.py VARIANTS) that launch's time, its
-     positions against the plain chain's, and the latency floor of the
-     frame chain (the decide launch with the window already in shared
-     memory);
+     against the plain chain's, the time of its decide launch alone and
+     the latency floor of the frame chain (the decide launch with the
+     window already in shared memory); for compose the time of a zero
+     fill of its buffer;
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA),
      each with every kernel's launch count, the output checked against
@@ -394,36 +393,22 @@ def check_kernels(torch, np, hopper) -> dict:
         nr = nrun.cpu().numpy()
         cnt = ins["wsola"][1][rows]
         args = (sent, sq, counts, nrun, hop, out_size)
-        searched, chosen = {}, {}
-        tw.wsola_frames_plain(*args, searched=searched, choices=chosen)
-        steps = tw.max_steps_for(SMAX, out_size, hop)
-        # Every design of the decide launch: its positions, its time and
-        # its latency floor.
-        designs = {}
-        for v in hopper.wsola.VARIANTS:
-            dec = (sent, sq, counts, nrun, steps)
-            pos = hopper.wsola.decide(*dec, True, v)
-            if not torch.equal(pos, chosen["pos"]):
-                bad = int((pos != chosen["pos"]).sum())
-                raise RuntimeError(f"wsola {tag} decide {v}: {bad} chosen "
-                                   "positions differ from the plain chain")
-            designs[v] = {
-                "decide_ms": time_ms(
-                    lambda dec=dec, v=v: hopper.wsola.decide(*dec, True, v),
-                    10),
-                "floor_ms": time_ms(
-                    lambda dec=dec, v=v: hopper.wsola.chain_floor(*dec, v),
-                    10)}
+        searched = {}
+        tw.wsola_frames_plain(*args, searched=searched)
+        dec = (sent, sq, counts, nrun, tw.max_steps_for(SMAX, out_size, hop))
         work = bound(
             2 * 4 * np.minimum(cnt, SMAX).astype(np.int64).sum()
             + 4 * 512 + 2 * 4 * len(cnt) * out_size,
             wsola_ops(searched, nr))
-        served = designs[hopper.wsola.VARIANT]
+        # The decide launch alone, and the chain's latency floor: its
+        # dependent steps with the window already in shared memory.
         work.update(speed=speed, hop=hop, out_size=out_size,
                     max_nrun=int(nr.max()), frames=int(nr.sum()),
-                    candidates=searched, design=hopper.wsola.VARIANT,
-                    decide_ms=served["decide_ms"],
-                    floor_ms=served["floor_ms"], designs=designs)
+                    candidates=searched,
+                    decide_ms=time_ms(
+                        lambda dec=dec: hopper.wsola.decide(*dec), 10),
+                    floor_ms=time_ms(
+                        lambda dec=dec: hopper.wsola.chain_floor(*dec), 10))
 
         def with_choices(fn, args):
             def call():

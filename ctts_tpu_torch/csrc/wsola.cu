@@ -28,31 +28,30 @@
 //
 // Bound on this card: a chain of up to ~894 dependent frames per
 // sentence (max_steps at SMAX 114688), 71 x 384 multiply-adds each:
-// latency, not bytes or operations. What the decide block does about it:
-//   - nothing in the chain waits on memory. The sentence streams through
-//     a 2048-sample ring in shared memory (samples as T, energies as
-//     f32): every 4 frames the block issues cp.async for the 512 samples
-//     and energies it needs 4 frames later, and converts the staged
-//     samples during the 4th frame, so each search reads only shared
-//     memory;
-//   - the 65 coarse candidates are scored in one round: warp w takes C
+// latency, not bytes or operations. What the decide block (13 warps)
+// does about it:
+//   - nothing in the chain waits on device memory. The sentence streams
+//     through a 2048-sample ring in shared memory (int32 samples, f32
+//     energies, and byte planes of each 4-sample group): every 4 frames
+//     the warps past the fine search issue cp.async for the 512 samples
+//     and energies needed 4 frames later, and land them during the 4th;
+//   - the 65 coarse candidates are scored in one round: warp w takes 5
 //     neighbouring candidates and each lane a run of 12 tail samples, so
-//     a lane's 12 + 4(C-1) window samples serve C candidates. The served
-//     design (C = 5, 13 warps) reads the window as byte planes and scores
-//     with dp4a (see kBytes); the lane sums are added across the warp
-//     exactly by 32-bit redux.sync adds;
+//     a lane's 7 window groups serve all 5. The products come from dp4a
+//     on byte planes, w * t = 256 (256 hi*hi + hi*lo + lo*hi) + lo*lo
+//     (hi signed, lo unsigned), both sums exact in int32 over all 384
+//     samples and added across the warp by redux.sync;
+//   - six warps score the fine candidates (int32 products, int64 sums);
 //   - two block barriers a frame: each warp posts its best candidate as
 //     one 64-bit key (order-preserving value bits, then the negated
 //     index, so a max is the earliest max), and after each barrier every
 //     warp reads the keys (a lane each, two redux.sync max) and takes the
 //     decision itself;
 //   - the OLA is off the chain (emit).
-// The designs compared (ops/hopper/wsola.py VARIANTS, timed by
-// chip_smoke.py phase 4): i8_c5, served; i64_c5 and i64_c3, an int32
-// ring and int64 multiply-adds with C = 5 (13 warps) or 3 (22 warps);
-// i64_c17, 4 warps that each then run the fine search from their own
-// registers (one barrier a frame); f64_c5, an f64 ring and f64 fused
-// multiply-adds (exact on these integers).
+// Measured against this design on the card (PERF.md, PR 3): int64 or
+// f64 multiply-adds in place of dp4a, 3 or 17 candidates a warp (22 or
+// 4 warps; with 4, every warp ran the fine search itself and a frame
+// had one barrier). All were slower.
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,29 +70,16 @@ constexpr int kChunkFrames = kChunk / kAhop;        // 4
 // frames k..k+3 read [k*AHOP - 128, k*AHOP + 1024), which the ring held
 // already, and the ring's 2048 slots cover both.
 constexpr int kLead = 1024;
+constexpr int kGroups = kRing / 4;                  // byte-plane slots
+constexpr int kGMask = kGroups - 1;
+constexpr int kPerWarp = 5;                         // coarse candidates a warp
+constexpr int kDecideWarps = (kNCoarse + kPerWarp - 1) / kPerWarp;  // 13
+constexpr int kDecideThreads = 32 * kDecideWarps;
 constexpr int kEmitThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T>
-struct Sum;
-template <>
-struct Sum<int> {
-  using type = long long;
-};
-template <>
-struct Sum<double> {
-  using type = double;
-};
-
 __device__ __forceinline__ void mac(long long& s, int w, int t) {
   s += static_cast<long long>(w) * t;  // |w * t| <= 2^30
-}
-__device__ __forceinline__ void mac(double& s, double w, double t) {
-  s = fma(w, t, s);  // exact: every product and partial sum < 2^53
-}
-__device__ __forceinline__ long long exact(long long s) { return s; }
-__device__ __forceinline__ long long exact(double s) {
-  return __double2ll_rn(s);
 }
 
 // Four samples at ring index a, a multiple of 4 (one aligned run that
@@ -105,28 +91,17 @@ __device__ __forceinline__ void load4(const int* ring, int a, int* v) {
   v[2] = q.z;
   v[3] = q.w;
 }
-__device__ __forceinline__ void load4(const double* ring, int a, double* v) {
-  const double2* p = reinterpret_cast<const double2*>(ring + (a & kMask));
-  const double2 q0 = p[0];
-  const double2 q1 = p[1];
-  v[0] = q0.x;
-  v[1] = q0.y;
-  v[2] = q1.x;
-  v[3] = q1.y;
-}
-
-template <int kShift, typename T>
-__device__ __forceinline__ void take_span(const T* v, T* t) {
+template <int kShift>
+__device__ __forceinline__ void take_span(const int* v, int* t) {
 #pragma unroll
   for (int q = 0; q < kSpan; ++q) t[q] = v[q + kShift];
 }
 
 // The kSpan samples at ring index a (any alignment; a & 3 is the same in
 // every lane of the warp): four aligned loads and a shift.
-template <typename T>
-__device__ __forceinline__ void load_span(const T* ring, int a, T* t) {
+__device__ __forceinline__ void load_span(const int* ring, int a, int* t) {
   const int s = a & 3;
-  T v[kSpan + 4];
+  int v[kSpan + 4];
 #pragma unroll
   for (int q = 0; q < kSpan + 4; q += 4) load4(ring, a - s + q, v + q);
   switch (s) {
@@ -233,43 +208,26 @@ __device__ __forceinline__ int dp4a_uu(unsigned a, unsigned b, int c) {
   return static_cast<int>(__dp4a(a, b, static_cast<unsigned>(c)));
 }
 
-template <int C>
-constexpr int decide_threads() {
-  return 32 * ((kNCoarse + C - 1) / C);
-}
-
 // kPrefetch = false is the chain's latency floor (a microbenchmark, not
 // on the serving path): the ring is filled once, nothing is fetched
 // during the chain, and every frame searches whatever the ring holds at
 // its indices -- the dependent steps alone.
-// kBytes (T = int): the coarse search reads byte planes of the window
-// (a ring of 4-sample groups beside the int32 ring) and scores with
-// dp4a: w * t = 256 (256 hi*hi + hi*lo + lo*hi) + lo*lo, both sums
-// exact in int32 over all 384 samples.
-template <typename T, int C, bool kBytes, bool kPrefetch>
-__global__ void __launch_bounds__(decide_threads<C>())
+template <bool kPrefetch>
+__global__ void __launch_bounds__(kDecideThreads)
 wsola_decide_kernel(const float* __restrict__ inp,
                     const float* __restrict__ sq,
                     const int* __restrict__ input_count,
                     const int* __restrict__ nrun, int* __restrict__ pos,
                     int S, int max_steps) {
-  using Acc = typename Sum<T>::type;
-  constexpr int kWarps = (kNCoarse + C - 1) / C;
-  constexpr int kThreads = 32 * kWarps;
-  constexpr int kWinLen = kSpan + 4 * (C - 1);
-  // Solo (at most 4 warps): every warp runs the fine search itself, so a
-  // frame has one barrier. Else six warps score a fine candidate each
-  // and a second barrier publishes them.
-  constexpr bool kSolo = kWarps <= 4;
-  __shared__ __align__(16) T ring[kRing];
+  constexpr int kWinGroups = kSpan / 4 + kPerWarp - 1;  // a lane's window
+  constexpr int kFetch0 = 32 * kNFine;  // the first prefetching thread
+  __shared__ __align__(16) int ring[kRing];
   __shared__ float ering[kRing];
-  __shared__ float stage[kChunk];
-  __shared__ unsigned long long coarse_key[2][kWarps];  // by frame parity
-  __shared__ unsigned long long fine_key[kNFine];
-  constexpr int kGroups = kBytes ? kRing / 4 : 1;
-  constexpr int kGMask = kGroups - 1;
   __shared__ unsigned plane_h[kGroups];
   __shared__ unsigned plane_l[kGroups];
+  __shared__ float stage[kChunk];
+  __shared__ unsigned long long coarse_key[kDecideWarps];
+  __shared__ unsigned long long fine_key[kNFine];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -282,19 +240,17 @@ wsola_decide_kernel(const float* __restrict__ inp,
   const int nr = nrun[b];
 
   // The 4 samples of input positions p0 .. p0 + 3 (p0 a multiple of 4)
-  // into the ring (and its byte planes).
+  // into the ring and its byte planes.
   auto put4 = [&](int p0, const int* v) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) ring[(p0 + r) & kMask] = static_cast<T>(v[r]);
-    if constexpr (kBytes) {
-      plane_l[(p0 >> 2) & kGMask] = plane_lo(v[0], v[1], v[2], v[3]);
-      plane_h[(p0 >> 2) & kGMask] = plane_hi(v[0], v[1], v[2], v[3]);
-    }
+    for (int r = 0; r < 4; ++r) ring[(p0 + r) & kMask] = v[r];
+    plane_l[(p0 >> 2) & kGMask] = plane_lo(v[0], v[1], v[2], v[3]);
+    plane_h[(p0 >> 2) & kGMask] = plane_hi(v[0], v[1], v[2], v[3]);
   };
 
-  for (int k = nr + tid; k < max_steps; k += kThreads) out[k] = -1;
+  for (int k = nr + tid; k < max_steps; k += kDecideThreads) out[k] = -1;
   const int fill = kPrefetch ? kLead + kMaxShift : kRing;
-  for (int g = tid; g < fill / 4; g += kThreads) {  // 4-sample groups
+  for (int g = tid; g < fill / 4; g += kDecideThreads) {  // 4-sample groups
     const int p0 = 4 * g - kMaxShift;
     int v[4];
 #pragma unroll
@@ -308,32 +264,16 @@ wsola_decide_kernel(const float* __restrict__ inp,
   }
   __syncthreads();
 
-  // The prefetch runs on the threads from kFetch0 on: past the fine
-  // search's warps, which it would delay. The chunk issued 3 frames ago:
-  // each of them converts the groups it fetched; the next barrier
-  // publishes them (and the energies).
-  constexpr int kFetch0 = kSolo ? 0 : 32 * kNFine;
-  auto land_chunk = [&](int k) {
-    cp_async_wait_all();
-    const int p0 = (k - (kChunkFrames - 1)) * kAhop + kLead;
-    for (int g = tid - kFetch0; g >= 0 && g < kChunk / 4;
-         g += kThreads - kFetch0) {
-      int v[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) v[r] = static_cast<int>(stage[4 * g + r]);
-      put4(p0 + 4 * g, v);
-    }
-  };
-
   int qo = kMaxShift;  // window index of the previous frame's tail
   for (int k = 0; k < nr; ++k) {
     const int nominal = k * kAhop;
     const int base = nominal - kMaxShift;
-    const bool lands = kPrefetch && k % kChunkFrames == kChunkFrames - 1;
     if (kPrefetch && k % kChunkFrames == 0) {
+      // The prefetch runs on the threads from kFetch0 on: past the fine
+      // search's warps, which it would delay.
       const int p0 = nominal + kLead;
       for (int g = tid - kFetch0; g >= 0 && g < kChunk / 4;
-           g += kThreads - kFetch0) {
+           g += kDecideThreads - kFetch0) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int p = p0 + 4 * g + r;
@@ -348,148 +288,107 @@ wsola_decide_kernel(const float* __restrict__ inp,
     if (k > 0) {
       const int tpos = base + qo;
       const float sq2 = ering[tpos & kMask];
-      T t[kSpan];  // the tail: a run of kSpan samples a lane
+      int t[kSpan];  // the tail: a run of kSpan samples a lane
       load_span(ring, tpos + kSpan * lane, t);
-      T tf[kSpan];  // the tail, lane-interleaved (fine search, not solo)
-      if (!kSolo && warp < kNFine) {
+      int tf[kSpan];  // the tail, lane-interleaved (fine search)
+      if (warp < kNFine) {
 #pragma unroll
         for (int m = 0; m < kSpan; ++m) {
           tf[m] = ring[(tpos + lane + 32 * m) & kMask];
         }
       }
 
-      {  // coarse: candidates c0 .. c0 + C - 1 of this warp, one round
-        const int c0 = warp * C;
-        const int c = c0 + lane;  // lane d < C scores candidate c0 + d
+      {  // coarse: candidates c0 .. c0 + 4 of this warp, one round
+        const int c0 = warp * kPerWarp;
+        const int c = c0 + lane;  // lane d < kPerWarp scores c0 + d
         const float den = denom_of(ering[(base + 4 * c) & kMask], sq2);
+        constexpr int kG = kSpan / 4;  // tail groups a lane
+        unsigned th[kG], tl[kG], wh[kWinGroups], wl[kWinGroups];
+#pragma unroll
+        for (int u = 0; u < kG; ++u) {
+          th[u] = plane_hi(t[4 * u], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3]);
+          tl[u] = plane_lo(t[4 * u], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3]);
+        }
+        const int g0 = (base >> 2) + c0 + kG * lane;
+#pragma unroll
+        for (int u = 0; u < kWinGroups; ++u) {
+          wh[u] = plane_h[(g0 + u) & kGMask];
+          wl[u] = plane_l[(g0 + u) & kGMask];
+        }
         long long num = 0;
-        if constexpr (kBytes) {
-          constexpr int kG = kSpan / 4;  // tail groups a lane
-          unsigned th[kG], tl[kG], wh[kG + C - 1], wl[kG + C - 1];
+#pragma unroll
+        for (int d = 0; d < kPerWarp; ++d) {
+          int hh = 0, hl = 0, ll = 0;
 #pragma unroll
           for (int u = 0; u < kG; ++u) {
-            th[u] = plane_hi(t[4 * u], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3]);
-            tl[u] = plane_lo(t[4 * u], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3]);
+            hh = dp4a_ss(wh[d + u], th[u], hh);
+            hl = dp4a_su(wh[d + u], tl[u], hl);
+            hl = dp4a_us(wl[d + u], th[u], hl);
+            ll = dp4a_uu(wl[d + u], tl[u], ll);
           }
-          const int g0 = (base >> 2) + c0 + kG * lane;
-#pragma unroll
-          for (int u = 0; u < kG + C - 1; ++u) {
-            wh[u] = plane_h[(g0 + u) & kGMask];
-            wl[u] = plane_l[(g0 + u) & kGMask];
-          }
-#pragma unroll
-          for (int d = 0; d < C; ++d) {
-            int hh = 0, hl = 0, ll = 0;
-#pragma unroll
-            for (int u = 0; u < kG; ++u) {
-              hh = dp4a_ss(wh[d + u], th[u], hh);
-              hl = dp4a_su(wh[d + u], tl[u], hl);
-              hl = dp4a_us(wl[d + u], th[u], hl);
-              ll = dp4a_uu(wl[d + u], tl[u], ll);
-            }
-            // 256 hh + hl: |lane| <= 12 (2^14 * 256 + 2 * 128 * 255) and
-            // 32 lanes of it stay below 1.64e9 < 2^31.
-            const long long tot =
-                static_cast<long long>(__reduce_add_sync(kFull, hh * 256 + hl)) *
-                    256 +
-                __reduce_add_sync(kFull, ll);
-            if (lane == d) num = tot;
-          }
-        } else {
-          T w[kWinLen];
-#pragma unroll
-          for (int q = 0; q < kWinLen; q += 4) {
-            load4(ring, base + 4 * c0 + kSpan * lane + q, w + q);
-          }
-          Acc s[C];
-#pragma unroll
-          for (int d = 0; d < C; ++d) {
-            s[d] = Acc(0);
-#pragma unroll
-            for (int q = 0; q < kSpan; ++q) mac(s[d], w[4 * d + q], t[q]);
-          }
-#pragma unroll
-          for (int d = 0; d < C; ++d) {
-            const long long tot = warp_sum(exact(s[d]));
-            if (lane == d) num = tot;
-          }
+          // 256 hh + hl: |lane| <= 12 (2^14 * 256 + 2 * 128 * 255) and
+          // 32 lanes of it stay below 1.64e9 < 2^31.
+          const long long tot =
+              static_cast<long long>(__reduce_add_sync(kFull, hh * 256 + hl)) *
+                  256 +
+              __reduce_add_sync(kFull, ll);
+          if (lane == d) num = tot;
         }
         unsigned key = 0;
-        if (lane < C && c < kNCoarse && valid_at(base, 4 * c, ic)) {
+        if (lane < kPerWarp && c < kNCoarse && valid_at(base, 4 * c, ic)) {
           key = order_key(corr(num, den));
         }
         const unsigned top = __reduce_max_sync(kFull, key);
         const int first = __ffs(__ballot_sync(kFull, key == top)) - 1;
-        if (lane == 0) coarse_key[k & 1][warp] = cand_key(top, c0 + first);
+        if (lane == 0) coarse_key[warp] = cand_key(top, c0 + first);
       }
-      if (kSolo && lands) land_chunk(k);
       __syncthreads();
 
-      const unsigned long long best = max_key(coarse_key[k & 1], kWarps, lane);
+      const unsigned long long best = max_key(coarse_key, kDecideWarps, lane);
       const int best_off =
           best ? 4 * static_cast<int>(kFull - static_cast<unsigned>(best)) -
                      kMaxShift
                : 0;
       const float best_v =
           best ? order_value(static_cast<unsigned>(best >> 32)) : -2.0f;
-      // Fine candidate r (lane r of the solo search, warp r otherwise) is
-      // window index j = best_off + 128 + rel(r).
-      const int r = kSolo ? lane : warp;
-      const int j = best_off + kMaxShift + (r < 3 ? r - 3 : r - 2);
-      const bool fine_ok = r < kNFine && j >= 0 && j <= 2 * kMaxShift &&
-                           valid_at(base, j, ic);
-      const float fine_den = denom_of(ering[(base + j) & kMask], sq2);
       off = best_off;
 
-      if constexpr (kSolo) {
-        // A lane's 20 window samples from index best_off + 124 + 12 lane
-        // (aligned) hold its run of all six candidates.
-        T v[kSpan + 8];
-#pragma unroll
-        for (int q = 0; q < kSpan + 8; q += 4) {
-          load4(ring, base + best_off + kMaxShift - 4 + kSpan * lane + q,
-                v + q);
-        }
-        long long num = 0;
-#pragma unroll
-        for (int f = 0; f < kNFine; ++f) {
-          const int rel4 = f < 3 ? f + 1 : f + 2;  // rel + 4
-          Acc s = Acc(0);
-#pragma unroll
-          for (int q = 0; q < kSpan; ++q) mac(s, v[rel4 + q], t[q]);
-          const long long tot = warp_sum(exact(s));
-          if (lane == f) num = tot;
-        }
+      if (warp < kNFine) {  // fine: candidate rel(warp) at window index j
+        const int j = best_off + kMaxShift + (warp < 3 ? warp - 3 : warp - 2);
+        const float den = denom_of(ering[(base + j) & kMask], sq2);
         unsigned key = 0;
-        if (fine_ok) key = order_key(corr(num, fine_den));
-        const unsigned top = __reduce_max_sync(kFull, key);
-        if (top && order_value(top) > best_v) {
-          const int f = __ffs(__ballot_sync(kFull, key == top)) - 1;
-          off += f < 3 ? f - 3 : f - 2;
-        }
-      } else {
-        if (warp < kNFine) {  // fine: one candidate a warp
-          unsigned key = 0;
-          if (fine_ok) {
-            Acc s[2] = {Acc(0), Acc(0)};  // two chains of adds
+        if (j >= 0 && j <= 2 * kMaxShift && valid_at(base, j, ic)) {
+          long long s[2] = {0, 0};  // two chains of adds
 #pragma unroll
-            for (int m = 0; m < kSpan; ++m) {
-              mac(s[m % 2], ring[(base + j + lane + 32 * m) & kMask], tf[m]);
-            }
-            key = order_key(
-                corr(warp_sum(exact(s[0]) + exact(s[1])), fine_den));
+          for (int m = 0; m < kSpan; ++m) {
+            mac(s[m % 2], ring[(base + j + lane + 32 * m) & kMask], tf[m]);
           }
-          if (lane == 0) fine_key[warp] = cand_key(key, warp);
+          key = order_key(corr(warp_sum(s[0] + s[1]), den));
         }
-        if (lands) land_chunk(k);
-        __syncthreads();
+        if (lane == 0) fine_key[warp] = cand_key(key, warp);
+      }
+      if (kPrefetch && k % kChunkFrames == kChunkFrames - 1) {
+        // The chunk issued 3 frames ago: each prefetching thread lands
+        // the groups it fetched; the barrier below publishes them (and
+        // the energies).
+        cp_async_wait_all();
+        const int p0 = (k - (kChunkFrames - 1)) * kAhop + kLead;
+        for (int g = tid - kFetch0; g >= 0 && g < kChunk / 4;
+             g += kDecideThreads - kFetch0) {
+          int v[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            v[r] = static_cast<int>(stage[4 * g + r]);
+          }
+          put4(p0 + 4 * g, v);
+        }
+      }
+      __syncthreads();
 
-        const unsigned long long fine = max_key(fine_key, kNFine, lane);
-        if (fine &&
-            order_value(static_cast<unsigned>(fine >> 32)) > best_v) {
-          const int f = static_cast<int>(kFull - static_cast<unsigned>(fine));
-          off += f < 3 ? f - 3 : f - 2;
-        }
+      const unsigned long long fine = max_key(fine_key, kNFine, lane);
+      if (fine && order_value(static_cast<unsigned>(fine >> 32)) > best_v) {
+        const int f = static_cast<int>(kFull - static_cast<unsigned>(fine));
+        off += f < 3 ? f - 3 : f - 2;
       }
     }
 
@@ -529,33 +428,16 @@ wsola_emit_kernel(const float* __restrict__ inp, const int* __restrict__ pos,
   norm[o] = n;
 }
 
-template <typename T, int C, bool kBytes, bool kPrefetch>
-void launch_decide(const float* inp, const float* sq, const int* ic,
-                   const int* nrun, int* pos, int B, int S, int max_steps,
-                   cudaStream_t stream) {
-  wsola_decide_kernel<T, C, kBytes, kPrefetch>
-      <<<B, decide_threads<C>(), 0, stream>>>(
-      inp, sq, ic, nrun, pos, S, max_steps);
-}
-
-// variant: the index in ops/hopper/wsola.py VARIANTS (i64_c5, i64_c3,
-// f64_c5, i64_c17, i8_c5).
 int decide(const float* inp, const float* sq, const int* ic, const int* nrun,
-           int* pos, int B, int S, int max_steps, int variant, int prefetch,
+           int* pos, int B, int S, int max_steps, int prefetch,
            cudaStream_t stream) {
   if (B <= 0) return 0;
-  switch (variant * 2 + (prefetch ? 1 : 0)) {
-    case 0: launch_decide<int, 5, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 1: launch_decide<int, 5, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 2: launch_decide<int, 3, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 3: launch_decide<int, 3, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 4: launch_decide<double, 5, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 5: launch_decide<double, 5, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 6: launch_decide<int, 17, false, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 7: launch_decide<int, 17, false, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 8: launch_decide<int, 5, true, false>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    case 9: launch_decide<int, 5, true, true>(inp, sq, ic, nrun, pos, B, S, max_steps, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (prefetch) {
+    wsola_decide_kernel<true><<<B, kDecideThreads, 0, stream>>>(
+        inp, sq, ic, nrun, pos, S, max_steps);
+  } else {
+    wsola_decide_kernel<false><<<B, kDecideThreads, 0, stream>>>(
+        inp, sq, ic, nrun, pos, S, max_steps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -569,10 +451,10 @@ extern "C" int ctts_wsola_frames(const float* inp, const float* sq,
                                  const int* input_count, const int* nrun,
                                  const float* window, int* pos, float* acc,
                                  float* norm, int B, int S, int hop,
-                                 int out_size, int max_steps, int variant,
+                                 int out_size, int max_steps,
                                  cudaStream_t stream) {
-  const int rc = decide(inp, sq, input_count, nrun, pos, B, S, max_steps,
-                        variant, 1, stream);
+  const int rc =
+      decide(inp, sq, input_count, nrun, pos, B, S, max_steps, 1, stream);
   if (rc != 0 || B <= 0) return rc;
   const dim3 grid((out_size + kEmitThreads - 1) / kEmitThreads, B);
   wsola_emit_kernel<<<grid, kEmitThreads, 0, stream>>>(
@@ -585,8 +467,7 @@ extern "C" int ctts_wsola_frames(const float* inp, const float* sq,
 extern "C" int ctts_wsola_decide(const float* inp, const float* sq,
                                  const int* input_count, const int* nrun,
                                  int* pos, int B, int S, int max_steps,
-                                 int variant, int prefetch,
-                                 cudaStream_t stream) {
-  return decide(inp, sq, input_count, nrun, pos, B, S, max_steps, variant,
-                prefetch, stream);
+                                 int prefetch, cudaStream_t stream) {
+  return decide(inp, sq, input_count, nrun, pos, B, S, max_steps, prefetch,
+                stream);
 }

@@ -41,8 +41,8 @@ SIGNATURES = {
     "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _P],
-    "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                          _I, _I, _I, _I, _I, _P],
+    "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -20,11 +20,6 @@ KERNEL = "wsola_frames"
 SOURCE = "ctts_tpu_torch/csrc/wsola.cu"
 REPLACES = "ctts_tpu/ops/pallas/wsola.py:515"
 
-# Designs of the decide launch (csrc/wsola.cu decide()): the ring's type
-# and sums, and the coarse candidates a warp scores.
-VARIANTS = ("i64_c5", "i64_c3", "f64_c5", "i64_c17", "i8_c5")
-VARIANT = "i8_c5"    # what wsola_frames launches
-
 launches = 0
 
 
@@ -60,16 +55,14 @@ def wsola_frames(inp, sq, input_count, nrun, hop: int, out_size: int,
     launch("ctts_wsola_frames", inp.data_ptr(), sq.data_ptr(),
            input_count.data_ptr(), nrun.data_ptr(),
            hann(FRAME, dev).data_ptr(), pos.data_ptr(), acc.data_ptr(),
-           norm.data_ptr(), B, S, hop, out_size, steps,
-           VARIANTS.index(VARIANT), stream_handle())
+           norm.data_ptr(), B, S, hop, out_size, steps, stream_handle())
     launches += 1
     if choices is not None:
         choices["pos"] = pos
     return acc, norm
 
 
-def decide(inp, sq, input_count, nrun, max_steps: int, with_load: bool = True,
-           variant: str = VARIANT):
+def decide(inp, sq, input_count, nrun, max_steps: int, with_load: bool = True):
     """The decide launch alone (a measurement, not counted in
     `launches`): pos [B, max_steps] i32 as wsola_frames' `choices`. With
     `with_load` False it is the chain's latency floor: the ring in shared
@@ -79,17 +72,15 @@ def decide(inp, sq, input_count, nrun, max_steps: int, with_load: bool = True,
     pos = torch.empty(B, max_steps, dtype=torch.int32, device=dev)
     launch("ctts_wsola_decide", inp.data_ptr(), sq.data_ptr(),
            input_count.data_ptr(), nrun.data_ptr(), pos.data_ptr(), B, S,
-           max_steps, VARIANTS.index(variant), int(with_load),
-           stream_handle())
+           max_steps, int(with_load), stream_handle())
     return pos
 
 
-def chain_floor(inp, sq, input_count, nrun, max_steps: int,
-                variant: str = VARIANT):
+def chain_floor(inp, sq, input_count, nrun, max_steps: int):
     """Latency floor of the frame chain on the card: decide() of nrun[b]
     frames with the window already in shared memory (only the steps that
     wait on the previous frame's choice). Needs CUDA tensors."""
     if inp.device.type != "cuda":
         raise ValueError(f"chain_floor: needs a CUDA tensor, not "
                          f"{inp.device}")
-    return decide(inp, sq, input_count, nrun, max_steps, False, variant)
+    return decide(inp, sq, input_count, nrun, max_steps, False)

@@ -332,9 +332,9 @@ def test_chain_floor_needs_the_card():
 
 @pytest.mark.cuda
 def test_chain_floor_runs_on_card(cuda_device):
-    """The latency floor (every design) and the decide launch with its
-    prefetch launch and mark the frames past nrun with -1; with the
-    prefetch, the chosen positions are the plain chain's."""
+    """The latency floor and the decide launch with its prefetch launch
+    and mark the frames past nrun with -1; with the prefetch, the chosen
+    positions are the plain chain's."""
     from ctts_tpu_torch.ops.hopper import wsola as hwsola
 
     hop = tw.synthesis_hop_for_speed(1.5)
@@ -347,12 +347,11 @@ def test_chain_floor_runs_on_card(cuda_device):
     choices = {}
     tw.wsola_frames_plain(inp, sq, ic, nrun, hop, OUT_SIZE, choices=choices)
     before = hwsola.launches
-    for variant in hwsola.VARIANTS:
-        out = hwsola.chain_floor(inp, sq, ic, nrun, steps, variant).cpu()
-        assert (out[0, 20:] == -1).all() and (out[1] == -1).all()
-        assert ((out[0, :20] >= 0) & (out[0, :20] <= S - tw.FRAME)).all()
-        got = hwsola.decide(inp, sq, ic, nrun, steps, True, variant)
-        assert torch.equal(got, choices["pos"]), variant
+    out = hwsola.chain_floor(inp, sq, ic, nrun, steps).cpu()
+    assert (out[0, 20:] == -1).all() and (out[1] == -1).all()
+    assert ((out[0, :20] >= 0) & (out[0, :20] <= S - tw.FRAME)).all()
+    got = hwsola.decide(inp, sq, ic, nrun, steps)
+    assert torch.equal(got, choices["pos"])
     assert hwsola.launches == before
 
 
