@@ -11,19 +11,27 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
   4. each kernel against its plain PyTorch version on the card, at the
      serving bucket's shapes (WSOLA at speeds 1.5 and 0.5, and for one
      sentence at 1.5; compose with rows where 3 units cover one stretch
-     and cf > n_eff), with both
-     median times (CUDA events), the least time the card could take
+     and cf > n_eff; assemble also on adversarial region tables and at an
+     output width off the 16-byte path; pitch also with every row at
+     L = 220), with the kernel's device time (device_ms: calls queued
+     behind a spin kernel, CUDA events) and its time as one call
+     bracketed by CUDA events (time_ms, medians; it includes the host's
+     enqueue, which exceeds a small kernel's run), the plain version's
+     time_ms, the least time the card could take
      (bound) and, where one PyTorch call computes the same function,
-     that call's time; for WSOLA also each frame's chosen position
+     that call's device time; for WSOLA also each frame's chosen position
      against the plain chain's, the time of its decide launch alone and
      the latency floor of the frame chain (the decide launch with the
-     window already in shared memory); for compose the time of a zero
-     fill of its buffer;
+     window already in shared memory); for compose and assemble the
+     time of a zero fill of their output; for pitch an empty kernel's
+     launch (the launch floor); each design of the pitch and assemble
+     kernels, held and timed the same way;
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA),
      each with every kernel's launch count, the output checked against
      the NumPy oracle (equal lengths, <= 2 LSB), the steady-state
-     audio-seconds of output per wall-second and peak memory; then one
+     audio-seconds of output per wall-second and peak memory (at 1.0
+     also the share of the pitch kernel's rows at L = 220); then one
      synchronous synthesize of the batch at speed 0.5, held to the
      oracle the same way. The stream yields batch N after batch N+2 is
      enqueued, so per-yield intervals are not batch periods: the steady
@@ -31,6 +39,7 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      stream takes beyond a 1-batch stream (the same fill and drain
      cancel), medians of interleaved repeats; the last 3-batch stream
      is the counted run.
+With --kernels-only the script stops after phase 4.
 The script imports nothing of the JAX package: the oracle, the voice
 builder and the plan compiler are the port's own copies. The last line
 is {"ok": true, "device": {...}}.
@@ -117,6 +126,37 @@ def time_ms(fn, reps: int) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds the card takes for one call of `fn`, with the host
+    out of the way: a spin kernel holds the stream while `reps` calls are
+    enqueued behind it, and CUDA events bracket the calls as the card
+    runs them back to back. time_ms() of a small kernel measures the
+    host's enqueue instead (an empty launch takes tens of microseconds
+    there). Raises if the spin ended before the enqueue did."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(6):
+        s = torch.cuda.Event(enable_timing=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        s.record()
+        torch.cuda._sleep(cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if s.elapsed_time(a) > 1.2 * enqueue_ms:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    raise RuntimeError("device_ms: the spin never outlasted the enqueue")
 
 
 def check_ieee(torch, np) -> dict:
@@ -227,6 +267,7 @@ def kernel_inputs(np):
     offsets = (np.cumsum(seg_tot, 1) - seg_tot).astype(np.int32)
     live = np.where(active, MARGIN + new_lens, 0).astype(np.int32)
     ins["assemble"] = (bufs, offsets, live)
+    ins["assemble_adversarial"] = assemble_adversarial(np, rng, offsets, live)
 
     # wsola: int16-valued sentences (tonal, noise, periodic near-ties as
     # in tests/test_pallas_wsola.py), ragged lengths: one empty row, one
@@ -246,6 +287,30 @@ def kernel_inputs(np):
     sent[np.arange(SMAX)[None, :] >= counts[:, None]] = 0.0
     ins["wsola"] = (sent, counts)
     return ins
+
+
+def assemble_adversarial(np, rng, offsets, live):
+    """Region tables that break the plan's invariants, four kinds of row
+    in turn: 3 regions covering one stretch; a live length past WREG; a
+    region that runs past the output's end; inactive (0 or negative) and
+    zero-length (MARGIN only) regions between active ones."""
+    OUTW = MARGIN + SMAX
+    offsets, live = offsets.copy(), live.copy()
+    for b in range(B):
+        kind = b % 4
+        o = int(rng.integers(0, 60000))
+        if kind == 0:
+            offsets[b, 3:6] = (o, o + 300, o + 600)
+            live[b, 3:6] = (4000, 5000, 6000)
+        elif kind == 1:
+            live[b, 2] = WREG + int(rng.integers(1, 9000))
+            live[b, 7] = 2 * WREG
+        elif kind == 2:
+            offsets[b, R - 1] = OUTW - int(rng.integers(1, 3000))
+            live[b, R - 1] = WREG
+        else:
+            live[b, 1:R - 1:2] = (0, -7, MARGIN, 0, MARGIN, -1, 0)  # R = 16
+    return offsets, live
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -312,15 +377,28 @@ def check_kernels(torch, np, hopper) -> dict:
         return [torch.as_tensor(x, device=dev) for x in xs]
 
     seg, ana = cuda(*ins["pitch"])
+    ana220 = torch.full_like(ana, 220)      # every row at the full window
     contrib, fo, base_off, cf_in, n_eff, a_c = cuda(*ins["compose"])
     bufs, starts, dst, seg_len = cuda(*ins["compact"])
     _, offsets, live = cuda(*ins["assemble"])
+    adv_offsets, adv_live = cuda(*ins["assemble_adversarial"])
     TOT, OUTW = R * WREG, MARGIN + SMAX
+    # An output width that is not a multiple of 4: the scalar path.
+    OUTW_ODD = OUTW - 2
 
     # Work each function needs on these inputs (each input read once,
-    # each output written once; see bound()).
+    # each output written once; see bound()). An empty kernel's launch
+    # is the floor beside the pitch kernel, whose bound is below it.
+    launch_floor = {"host_ms": time_ms(hopper.build.empty_launch, 50),
+                    "ms": device_ms(hopper.build.empty_launch, 200)}
     pitch_work = bound(seg.nbytes + ana.nbytes + 2 * seg.shape[0] * 276 * 4,
                        pitch_ops(np, ins["pitch"][1]))
+    pitch220_work = bound(
+        seg.nbytes + ana.nbytes + 2 * seg.shape[0] * 276 * 4,
+        pitch_ops(np, np.full(seg.shape[0], 220)))
+    for w in (pitch_work, pitch220_work):
+        w["launch_floor_ms"] = launch_floor["ms"]
+        w["launch_floor_host_ms"] = launch_floor["host_ms"]
     ne = ins["compose"][4].astype(np.int64)
     cf = np.minimum(ins["compose"][3], ne).astype(np.int64)
     compose_work = bound(
@@ -329,12 +407,24 @@ def check_kernels(torch, np, hopper) -> dict:
     # The buffer's write alone: a zero fill of its bytes (context for
     # compose, whose bound is mostly this write).
     fill = torch.empty(B, TOT, dtype=torch.float32, device=dev)
-    compose_work["zero_fill_ms"] = time_ms(fill.zero_, 20)
+    compose_work["zero_fill_ms"] = device_ms(fill.zero_, 20)
     del fill
     compact_work = bound(2 * bufs.nbytes + 3 * starts.nbytes, 0.0)
-    lv = ins["assemble"][2].astype(np.int64)
-    assemble_work = bound(4 * lv.sum() + 2 * offsets.nbytes + 4 * B * OUTW,
-                          float(lv.sum()))
+
+    def assemble_bound(offs, lv, outw):
+        """The live samples that land in [0, outw), read once and added
+        once, the tables, and the output written once."""
+        lv = np.clip(np.minimum(lv, WREG), 0, None).astype(np.int64)
+        n = np.clip(np.minimum(offs + lv, outw) - offs, 0, None).sum()
+        return bound(4 * n + 2 * offs.nbytes + 4 * B * outw, float(n))
+
+    assemble_work = assemble_bound(*ins["assemble"][1:], OUTW)
+    adv_work = assemble_bound(*ins["assemble_adversarial"], OUTW)
+    odd_work = assemble_bound(*ins["assemble"][1:], OUTW_ODD)
+    # The output's write alone: a zero fill of its bytes.
+    fill = torch.empty(B, OUTW, dtype=torch.float32, device=dev)
+    assemble_work["zero_fill_ms"] = device_ms(fill.zero_, 20)
+    del fill
 
     # Library yardsticks (timed here, never called by the port).
     pitch_library = pitch_conv(torch, seg, ana)
@@ -367,6 +457,10 @@ def check_kernels(torch, np, hopper) -> dict:
             lambda: hopper.pitch.pitch_corr(seg, ana),
             lambda: hopper.pitch.pitch_corr_plain(seg, ana), 20, 5,
             pitch_work, pitch_library),
+        "pitch_corr L=220": (
+            lambda: hopper.pitch.pitch_corr(seg, ana220),
+            lambda: hopper.pitch.pitch_corr_plain(seg, ana220), 20, 5,
+            pitch220_work, pitch_conv(torch, seg, ana220)),
         "compose": (
             lambda: hopper.compose.compose(contrib, fo, base_off, cf_in,
                                            n_eff, a_c, TOT, True),
@@ -385,6 +479,18 @@ def check_kernels(torch, np, hopper) -> dict:
             assemble_work,
             lambda: (torch.index_add(asm_zero, 0, asm_idx, bufs_flat)
                      [:B * OUTW].reshape(B, OUTW),)),
+        "assemble adversarial": (
+            lambda: hopper.assemble.assemble(bufs, adv_offsets, adv_live,
+                                             WREG, OUTW),
+            lambda: hopper.assemble.assemble_plain(bufs, adv_offsets,
+                                                   adv_live, WREG, OUTW),
+            20, 3, adv_work, None),
+        "assemble scalar path": (
+            lambda: hopper.assemble.assemble(bufs, offsets, live, WREG,
+                                             OUTW_ODD),
+            lambda: hopper.assemble.assemble_plain(bufs, offsets, live, WREG,
+                                                   OUTW_ODD), 20, 3,
+            odd_work, None),
     }
     for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
         sent, counts = cuda(*(x[rows] for x in ins["wsola"]))
@@ -430,12 +536,13 @@ def check_kernels(torch, np, hopper) -> dict:
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         res = {"equal": equal, "max_abs_err": err,
-               "ms": time_ms(kern, reps), "plain_ms": time_ms(plain,
-                                                              plain_reps),
+               "ms": device_ms(kern, reps), "host_ms": time_ms(kern, reps),
+               "plain_ms": time_ms(plain, plain_reps),
                "shapes": [list(g.shape) for g in got], **work,
                "library_ms": None}
         if library is not None:
-            res["library_ms"] = time_ms(library, reps)
+            res["library_ms"] = device_ms(library, reps)
+            res["library_host_ms"] = time_ms(library, reps)
             res["library_equal"] = all(
                 torch.equal(lib, g) for lib, g in zip(library(), got))
         say(f"kernel {name}", res)
@@ -443,6 +550,37 @@ def check_kernels(torch, np, hopper) -> dict:
             raise RuntimeError(f"{name}: kernel differs from its plain "
                                f"version (max abs err {err})")
         results[name] = res
+
+    # Designs of the pitch and assemble kernels, each held to the plain
+    # version and timed at the phase-4 shapes.
+    designs = {}
+    for tag, a in (("", ana), (" L=220", ana220)):
+        want = hopper.pitch.pitch_corr_plain(seg, a)
+        for d in hopper.pitch.DESIGNS:
+            designs[f"pitch_corr{tag} {d}"] = (
+                lambda a=a, d=d: hopper.pitch.pitch_corr_design(seg, a, d),
+                want)
+    for offs, lv, outw, tag in ((offsets, live, OUTW, ""),
+                                (adv_offsets, adv_live, OUTW,
+                                 " adversarial")):
+        want = (hopper.assemble.assemble_plain(bufs, offs, lv, WREG, outw),)
+        for g in (1, 2, 4):
+            for acc in hopper.assemble.ACCESS:
+                designs[f"assemble{tag} g{g} {acc}"] = (
+                    lambda offs=offs, lv=lv, outw=outw, g=g, acc=acc:
+                    (hopper.assemble.assemble_design(bufs, offs, lv, WREG,
+                                                     outw, g, acc),), want)
+    for name, (fn, want) in designs.items():
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        res = {"equal": equal, "ms": device_ms(fn, 20)}
+        say(f"design {name}", res)
+        if not equal:
+            raise RuntimeError(f"design {name} differs from the plain "
+                               "version")
+        results[f"design {name}"] = res
     return results
 
 
@@ -489,6 +627,30 @@ def check_oracle(np, db, config, batches, speed: float) -> int:
     return worst
 
 
+def record_pitch_lengths(torch, hopper, run) -> dict:
+    """Runs `run` with the pitch kernel's wrapper wrapped to keep each
+    call's analysis lengths (clamped to [0, 220] as the kernel clamps
+    them); returns the count of rows and the share at L = 220 and L = 0."""
+    seen = []
+    wrapper = hopper.pitch.pitch_corr
+
+    def recording(seg, ana_len):
+        seen.append(ana_len.clamp(0, 220).clone())
+        return wrapper(seg, ana_len)
+
+    hopper.pitch.pitch_corr = recording
+    try:
+        run()
+    finally:
+        hopper.pitch.pitch_corr = wrapper
+    L = torch.cat(seen).cpu()
+    n = int(L.numel())
+    return {"calls": len(seen), "rows": n,
+            "share_L220": float((L == 220).sum()) / max(n, 1),
+            "share_L0": float((L == 0).sum()) / max(n, 1),
+            "mean_L": float(L.double().mean()) if n else 0.0}
+
+
 def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
     """stream() over N_BATCHES batches at one speed, timed and held to
     the oracle; the launch counts are those of the last 3-batch stream,
@@ -501,7 +663,12 @@ def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
         got = list(bs.stream((texts for _ in range(n)), speed=speed))
         return got, time.perf_counter() - t0
 
-    timed_stream(1)                       # first-use set-up, untimed
+    # First-use set-up, untimed; at speed 1.0 it also records the
+    # analysis length of every row the pitch kernel gets.
+    lengths = record_pitch_lengths(torch, hopper, lambda: timed_stream(1)) \
+        if speed == 1.0 else None
+    if lengths is None:
+        timed_stream(1)
     walls_1, walls_n = [], []
     for rep in range(TIMING_REPEATS):
         walls_1.append(timed_stream(1)[1])
@@ -525,7 +692,9 @@ def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
     if missing:
         raise RuntimeError(f"kernels not launched by the path at speed "
                            f"{speed}: {missing}")
+    out = {"pitch_rows": lengths} if lengths is not None else {}
     return {
+        **out,
         "speed": speed, "batches": len(batches),
         "sentences_per_batch": len(texts), "distinct_texts": len(TEXTS),
         "oracle_max_abs_diff": worst, "launches": launches,
@@ -620,6 +789,9 @@ def main() -> int:
 
     say("ieee", check_ieee(torch, np))
     kern = check_kernels(torch, np, hopper)
+    if "--kernels-only" in sys.argv[1:]:
+        print("chip_smoke.py: --kernels-only, phase 5 skipped", flush=True)
+        return 0
     sl = run_slice(torch, np, hopper)
 
     leaked = sorted(m for m in sys.modules

@@ -7,15 +7,30 @@
 //   corr[lag] = sum_{i < L} s[i] * s[i + lag]
 //   e2[lag]   = sum_{i < L} s[i + lag]^2        lag = 0..275, L <= 220
 // (s = the int16-valued segment, L = the row's analysis length; the
-// masked base is s[i] for i < L). A product fits int32 (|s| <= 32768);
-// a sum reaches 220 * 2^30 and is kept in int64, then rounded to f32
-// once (__ll2float_rn), which is what combine_exact returns.
+// masked base is s[i] for i < L), each rounded once to f32, which is
+// what combine_exact returns.
 //
-// Bound on this card: arithmetic-light and latency-bound. One block per
-// row stages the 495 samples in shared memory (2 KB) and gives each lag
-// a thread; ~220 int multiply-adds per thread, 2 x 276 f32 stores per
-// row. Simple for now: no tiling across rows, no tensor cores (the int8
-// path cannot take 16-bit samples exactly without a split).
+// Bound on this card: the bytes (2 KB in, 2.2 KB out a row) take less
+// time than a launch; the work is ~276 L multiply-adds a row, so the
+// instruction rate bounds it. A thread per lag with int64 sums spent
+// ~7 instructions and 2 shared-memory loads on each multiply-add and
+// summed e2 term by term.
+//
+// Design: one warp per row, 4 rows a block, no block barrier. e2 comes
+// from a prefix sum of squares P[k] = sum_{i<k} s[i]^2, exact in f64
+// (< 2^39): e2[lag] = P[lag + L] - P[lag], the same integer. corr: each
+// lane holds G consecutive lags in registers and slides a window of the
+// segment across them, the base sample arriving as a shared-memory
+// broadcast, so a multiply-add costs about one instruction. Two exact
+// forms of the multiply-add are built (kDp4a, kF64).
+// kDp4a: byte planes s = 256 hi + lo (hi signed, lo unsigned), packed 4
+// samples a word at every offset; 4 dp4a give 4 samples of the 4 plane
+// products, kept in 3 int32 sums a lag (each below 2^24 for 220 terms)
+// and joined in int64 once. G = 12 lags a lane (23 lanes), the window
+// 3 aligned uint4 blocks a plane, one new block a step.
+// kF64: f64 fused multiply-adds; every partial sum is an integer below
+// 2^38, exact in any order. G = 9 lags a lane (31 lanes), the window 9
+// registers shifted by one sample a step.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,33 +39,343 @@ namespace {
 constexpr int kSpan = 495;   // PITCH_MAX_LAG + PITCH_ANALYSIS
 constexpr int kAna = 220;    // PITCH_ANALYSIS
 constexpr int kLags = 276;   // lags 0..PITCH_MAX_LAG
-constexpr int kThreads = 288;
+constexpr int kRows = 4;     // rows (warps) a block
+constexpr int kPadded = 512; // the segment, zero past kSpan
+constexpr int kChunks = kPadded / 128;  // of 4 samples a lane
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void pitch_corr_kernel(const float* __restrict__ seg,
-                                  const int* __restrict__ ana_len,
-                                  float* __restrict__ corr,
-                                  float* __restrict__ e2) {
-  __shared__ int s[kSpan];
-  const int row = blockIdx.x;
+enum Design { kDp4a = 0, kF64 = 1 };
+
+// Samples k = 128 m + 4 lane + t (t < 4) of a row, 0 past kSpan.
+__device__ __forceinline__ void load4(const float* __restrict__ src, int m,
+                                      int lane, int* v) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int k = 128 * m + 4 * lane + t;
+    v[t] = k < kSpan ? static_cast<int>(src[k]) : 0;  // int16-valued: exact
+  }
+}
+
+// P[k] lives at pidx(k): one pad slot every 16, so that lanes writing 4
+// consecutive entries, or reading 12 lags apart, hit distinct banks.
+__device__ __forceinline__ int pidx(int k) { return k + (k >> 4); }
+constexpr int kPSize = kPadded + (kPadded >> 4) + 1;
+
+// P[k + 1] for the 4 samples of load4(m): the running sum of squares,
+// scanned across the warp; `carry` is P[128 m] on entry, P[128 (m + 1)]
+// on return. Every value is an integer below 2^39: exact in f64.
+__device__ __forceinline__ void prefix4(const int* v, int m, int lane,
+                                        double* P, double& carry) {
+  double sq[4];
+  double own = 0.0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    sq[t] = static_cast<double>(v[t]) * static_cast<double>(v[t]);
+    own += sq[t];
+  }
+  double incl = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  double run = carry + (incl - own);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    run += sq[t];
+    P[pidx(128 * m + 4 * lane + t + 1)] = run;
+  }
+  carry += __shfl_sync(kFull, incl, 31);
+}
+
+// Four-byte dot products, signed (s) or unsigned (u) per operand.
+__device__ __forceinline__ int dp4a_ss(unsigned a, unsigned b, int c) {
+  return __dp4a(static_cast<int>(a), static_cast<int>(b), c);
+}
+__device__ __forceinline__ int dp4a_su(unsigned a, unsigned b, int c) {
+  int d;
+  asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ int dp4a_us(unsigned a, unsigned b, int c) {
+  int d;
+  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ int dp4a_uu(unsigned a, unsigned b, int c) {
+  return static_cast<int>(__dp4a(a, b, static_cast<unsigned>(c)));
+}
+
+__device__ __forceinline__ unsigned word_of(const uint4& q, int i) {
+  return i == 0 ? q.x : (i == 1 ? q.y : (i == 2 ? q.z : q.w));
+}
+
+// The 4 words at offsets 4q .. 4q + 3 of a byte plane, from its aligned
+// words w = bytes 4q .. 4q + 3 and nx = bytes 4q + 4 .. 4q + 7.
+__device__ __forceinline__ uint4 shifted_words(unsigned w, unsigned nx) {
+  return make_uint4(w, __byte_perm(w, nx, 0x4321), __byte_perm(w, nx, 0x5432),
+                    __byte_perm(w, nx, 0x6543));
+}
+
+// A row with L = 0 has corr = e2 = 0 at every lag: written with no read.
+__device__ __forceinline__ void store_zero_row(float* __restrict__ corr,
+                                               float* __restrict__ e2,
+                                               int row, int lane) {
+  const size_t o = static_cast<size_t>(row) * kLags;
+  for (int k = lane; k < kLags; k += 32) {
+    corr[o + k] = 0.0f;
+    e2[o + k] = 0.0f;
+  }
+}
+
+// The row's corr and e2, staged in shared memory by lag, leave as
+// coalesced stores (a lane's lags are G apart from the next lane's).
+__device__ __forceinline__ void store_row(const float* c, const float* e,
+                                          float* __restrict__ corr,
+                                          float* __restrict__ e2, int row,
+                                          int lane) {
+  __syncwarp();
+  const size_t o = static_cast<size_t>(row) * kLags;
+  for (int k = lane; k < kLags; k += 32) {
+    corr[o + k] = c[k];
+    e2[o + k] = e[k];
+  }
+}
+
+struct Dp4aSmem {
+  double P[kPSize];
+  uint4 wh[kPadded / 4];  // wh[q].{x,y,z,w}: hi bytes of s[k .. k+3], k = 4q..4q+3
+  uint4 wl[kPadded / 4];
+  uint2 base[64];         // (hi, lo) words of the masked base, 0 past L
+};
+
+constexpr int kG12 = 12;  // dp4a: lags a lane
+
+// One step g of the dp4a loop: the window is blocks J, J+1, J+2 (mod 3)
+// of the ring; block J+2 is loaded first (block q0 + g + 2).
+template <int J>
+__device__ __forceinline__ void dp4a_step(const Dp4aSmem& sm, int q0, int g,
+                                          uint4 (&bh)[3], uint4 (&bl)[3],
+                                          int (&hh)[kG12], int (&hx)[kG12],
+                                          int (&ll)[kG12]) {
+  constexpr int kNew = (J + 2) % 3;
+  bh[kNew] = sm.wh[q0 + g + 2];
+  bl[kNew] = sm.wl[q0 + g + 2];
+  const uint2 a = sm.base[g];
+#pragma unroll
+  for (int d = 0; d < kG12; ++d) {
+    const unsigned h = word_of(bh[(J + d / 4) % 3], d % 4);
+    const unsigned l = word_of(bl[(J + d / 4) % 3], d % 4);
+    hh[d] = dp4a_ss(a.x, h, hh[d]);
+    hx[d] = dp4a_su(a.x, l, hx[d]);
+    hx[d] = dp4a_us(a.y, h, hx[d]);
+    ll[d] = dp4a_uu(a.y, l, ll[d]);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kRows)
+pitch_dp4a_kernel(const float* __restrict__ seg,
+                  const int* __restrict__ ana_len, float* __restrict__ corr,
+                  float* __restrict__ e2, int n) {
+  __shared__ Dp4aSmem smem[kRows];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRows + warp;
+  if (row >= n) return;
+  Dp4aSmem& sm = smem[warp];
   const float* src = seg + static_cast<size_t>(row) * kSpan;
-  for (int i = threadIdx.x; i < kSpan; i += blockDim.x) {
-    s[i] = static_cast<int>(src[i]);  // int16-valued: exact
+  const int L = min(max(ana_len[row], 0), kAna);
+  if (L == 0) {
+    store_zero_row(corr, e2, row, lane);
+    return;
   }
-  __syncthreads();
-  int n = ana_len[row];
-  n = n < 0 ? 0 : (n > kAna ? kAna : n);
-  const int lag = threadIdx.x;
-  if (lag >= kLags) return;
-  long long c = 0;
-  long long e = 0;
-  for (int i = 0; i < n; ++i) {
-    const int v = s[i + lag];
-    c += static_cast<long long>(s[i] * v);
-    e += static_cast<long long>(v * v);
+
+  // The row as byte planes, 4 samples a word: word q = 32 m + lane holds
+  // samples 4q .. 4q + 3 (hi signed, lo unsigned: s = 256 hi + lo).
+  unsigned hw[kChunks], lw[kChunks];
+  double carry = 0.0;
+  if (lane == 0) sm.P[0] = 0.0;
+#pragma unroll
+  for (int m = 0; m < kChunks; ++m) {
+    int v[4];
+    load4(src, m, lane, v);
+    prefix4(v, m, lane, sm.P, carry);
+    hw[m] = lw[m] = 0u;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      hw[m] |= static_cast<unsigned>((v[t] >> 8) & 0xff) << (8 * t);
+      lw[m] |= static_cast<unsigned>(v[t] & 0xff) << (8 * t);
+    }
   }
-  const size_t o = static_cast<size_t>(row) * kLags + lag;
-  corr[o] = __ll2float_rn(c);
-  e2[o] = __ll2float_rn(e);
+  // Words at every offset, from each word and the next one (the next
+  // lane's, or the next chunk's first; 0 past the end).
+#pragma unroll
+  for (int m = 0; m < kChunks; ++m) {
+    const bool last = m + 1 == kChunks;
+    const unsigned h0 = __shfl_sync(kFull, last ? 0u : hw[(m + 1) % kChunks], 0);
+    const unsigned l0 = __shfl_sync(kFull, last ? 0u : lw[(m + 1) % kChunks], 0);
+    unsigned nh = __shfl_down_sync(kFull, hw[m], 1);
+    unsigned nl = __shfl_down_sync(kFull, lw[m], 1);
+    if (lane == 31) {
+      nh = h0;
+      nl = l0;
+    }
+    sm.wh[32 * m + lane] = shifted_words(hw[m], nh);
+    sm.wl[32 * m + lane] = shifted_words(lw[m], nl);
+  }
+  // The masked base: groups g < ceil(L / 4), the last one cut at L.
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int g = 32 * m + lane;
+    const int keep = min(max(L - 4 * g, 0), 4);  // samples of group g
+    const unsigned mask = keep == 4 ? kFull : (1u << (8 * keep)) - 1u;
+    sm.base[g] = make_uint2(hw[m] & mask, lw[m] & mask);
+  }
+  __syncwarp();
+
+  const bool active = lane * kG12 < kLags;
+  const int lag0 = kG12 * lane;
+  float c[kG12], e[kG12];
+  if (active) {
+    const int q0 = 3 * lane;  // lag0 / 4
+    uint4 bh[3], bl[3];
+    bh[0] = sm.wh[q0];
+    bl[0] = sm.wl[q0];
+    bh[1] = sm.wh[q0 + 1];
+    bl[1] = sm.wl[q0 + 1];
+    int hh[kG12], hx[kG12], ll[kG12];
+#pragma unroll
+    for (int d = 0; d < kG12; ++d) hh[d] = hx[d] = ll[d] = 0;
+    const int ng = (L + 3) / 4;
+    for (int g = 0; g < ng; g += 3) {  // base groups past ng are 0
+      dp4a_step<0>(sm, q0, g, bh, bl, hh, hx, ll);
+      dp4a_step<1>(sm, q0, g + 1, bh, bl, hh, hx, ll);
+      dp4a_step<2>(sm, q0, g + 2, bh, bl, hh, hx, ll);
+    }
+#pragma unroll
+    for (int d = 0; d < kG12; ++d) {
+      const long long sum = static_cast<long long>(hh[d]) * 65536 +
+                            static_cast<long long>(hx[d]) * 256 + ll[d];
+      c[d] = __ll2float_rn(sum);
+      e[d] = __double2float_rn(sm.P[pidx(lag0 + d + L)] -
+                               sm.P[pidx(lag0 + d)]);
+    }
+  }
+  // The planes are read no more: they stage the row's corr and e2.
+  float* c_out = reinterpret_cast<float*>(sm.wh);
+  float* e_out = reinterpret_cast<float*>(sm.wl);
+  __syncwarp();
+  if (active) {
+#pragma unroll
+    for (int d = 0; d < kG12; ++d) {
+      c_out[lag0 + d] = c[d];
+      e_out[lag0 + d] = e[d];
+    }
+  }
+  store_row(c_out, e_out, corr, e2, row, lane);
+}
+
+constexpr int kG9 = 9;  // f64: lags a lane
+
+struct F64Smem {
+  double P[kPSize];
+  double s[kPadded + 16];     // the segment, 0 past kSpan
+  double base[kAna + kG9];    // s[i] for i < L, else 0
+};
+
+__global__ void __launch_bounds__(32 * kRows)
+pitch_f64_kernel(const float* __restrict__ seg,
+                 const int* __restrict__ ana_len, float* __restrict__ corr,
+                 float* __restrict__ e2, int n) {
+  __shared__ F64Smem smem[kRows];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRows + warp;
+  if (row >= n) return;
+  F64Smem& sm = smem[warp];
+  const float* src = seg + static_cast<size_t>(row) * kSpan;
+  const int L = min(max(ana_len[row], 0), kAna);
+  if (L == 0) {
+    store_zero_row(corr, e2, row, lane);
+    return;
+  }
+
+  double carry = 0.0;
+  if (lane == 0) sm.P[0] = 0.0;
+#pragma unroll
+  for (int m = 0; m < kChunks; ++m) {
+    int v[4];
+    load4(src, m, lane, v);
+    prefix4(v, m, lane, sm.P, carry);
+  }
+  // The segment again, a sample a lane (conflict-free stores), every
+  // load in flight at once.
+  double x[kPadded / 32];
+#pragma unroll
+  for (int c = 0; c < kPadded / 32; ++c) {
+    const int k = 32 * c + lane;
+    x[c] = k < kSpan ? static_cast<double>(src[k]) : 0.0;
+  }
+#pragma unroll
+  for (int c = 0; c < kPadded / 32; ++c) {
+    const int k = 32 * c + lane;
+    sm.s[k] = x[c];
+    if (k < kAna + kG9) sm.base[k] = k < L ? x[c] : 0.0;
+  }
+  if (lane < 16) sm.s[kPadded + lane] = 0.0;
+  __syncwarp();
+
+  const int lag0 = kG9 * min(lane, 30);  // 31 lanes cover lags 0..278
+  double r[kG9], acc[kG9];
+#pragma unroll
+  for (int d = 0; d < kG9; ++d) {
+    r[d] = sm.s[lag0 + d];
+    acc[d] = 0.0;
+  }
+  for (int i0 = 0; i0 < L; i0 += kG9) {  // base samples past L are 0
+    // Ring: at step i0 + j the window s[i0 + j + lag0 + d] is r[(j+d) % 9].
+#pragma unroll
+    for (int j = 0; j < kG9; ++j) {
+      const double a = sm.base[i0 + j];
+#pragma unroll
+      for (int d = 0; d < kG9; ++d) {
+        acc[d] = __fma_rn(a, r[(j + d) % kG9], acc[d]);
+      }
+      r[j] = sm.s[i0 + j + lag0 + kG9];
+    }
+  }
+  // After the loop the segment's slots hold the row's corr and e2.
+  float* c_out = reinterpret_cast<float*>(sm.s);
+  float* e_out = c_out + kLags + 12;
+  __syncwarp();
+  if (lane < 31) {
+#pragma unroll
+    for (int d = 0; d < kG9; ++d) {
+      const int lag = lag0 + d;
+      if (lag < kLags) {
+        c_out[lag] = __double2float_rn(acc[d]);
+        e_out[lag] = __double2float_rn(sm.P[pidx(lag + L)] - sm.P[pidx(lag)]);
+      }
+    }
+  }
+  store_row(c_out, e_out, corr, e2, row, lane);
+}
+
+int launch(int design, const float* seg, const int* ana_len, float* corr,
+           float* e2, int n, cudaStream_t stream) {
+  if (n > 0) {
+    const int blocks = (n + kRows - 1) / kRows;
+    if (design == kDp4a) {
+      pitch_dp4a_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len,
+                                                           corr, e2, n);
+    } else if (design == kF64) {
+      pitch_f64_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len, corr,
+                                                          e2, n);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -59,8 +384,12 @@ __global__ void pitch_corr_kernel(const float* __restrict__ seg,
 extern "C" int ctts_pitch_corr(const float* seg, const int* ana_len,
                                float* corr, float* e2, int n,
                                cudaStream_t stream) {
-  if (n > 0) {
-    pitch_corr_kernel<<<n, kThreads, 0, stream>>>(seg, ana_len, corr, e2);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(kDp4a, seg, ana_len, corr, e2, n, stream);
+}
+
+// Design comparison: the same function by kDp4a (0) or kF64 (1).
+extern "C" int ctts_pitch_corr_design(const float* seg, const int* ana_len,
+                                      float* corr, float* e2, int n,
+                                      int design, cudaStream_t stream) {
+  return launch(design, seg, ana_len, corr, e2, n, stream);
 }

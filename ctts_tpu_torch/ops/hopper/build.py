@@ -36,13 +36,16 @@ _I = ctypes.c_int
 # void*, sizes are int; each returns its cudaError_t.
 SIGNATURES = {
     "ctts_pitch_corr": [_P, _P, _P, _P, _I, _P],
+    "ctts_pitch_corr_design": [_P, _P, _P, _P, _I, _I, _P],
     "ctts_compose": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
     "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ctts_assemble_design": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],
     "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ctts_empty": [_P],
 }
 
 
@@ -150,6 +153,12 @@ def check(t, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def empty_launch() -> None:
+    """One launch of an empty kernel on the current stream: the launch
+    floor that a kernel's time is read against (a measurement)."""
+    launch("ctts_empty", stream_handle())
 
 
 def stream_handle() -> int:
