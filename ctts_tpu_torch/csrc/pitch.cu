@@ -44,7 +44,7 @@ constexpr int kPadded = 512; // the segment, zero past kSpan
 constexpr int kChunks = kPadded / 128;  // of 4 samples a lane
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Design { kDp4a = 0, kF64 = 1 };
+enum Design { kDp4a = 0, kF64 = 1, kDp4a8 = 2 };
 
 // Samples k = 128 m + 4 lane + t (t < 4) of a row, 0 past kSpan.
 __device__ __forceinline__ void load4(const float* __restrict__ src, int m,
@@ -149,47 +149,11 @@ struct Dp4aSmem {
   uint2 base[64];         // (hi, lo) words of the masked base, 0 past L
 };
 
-constexpr int kG12 = 12;  // dp4a: lags a lane
-
-// One step g of the dp4a loop: the window is blocks J, J+1, J+2 (mod 3)
-// of the ring; block J+2 is loaded first (block q0 + g + 2).
-template <int J>
-__device__ __forceinline__ void dp4a_step(const Dp4aSmem& sm, int q0, int g,
-                                          uint4 (&bh)[3], uint4 (&bl)[3],
-                                          int (&hh)[kG12], int (&hx)[kG12],
-                                          int (&ll)[kG12]) {
-  constexpr int kNew = (J + 2) % 3;
-  bh[kNew] = sm.wh[q0 + g + 2];
-  bl[kNew] = sm.wl[q0 + g + 2];
-  const uint2 a = sm.base[g];
-#pragma unroll
-  for (int d = 0; d < kG12; ++d) {
-    const unsigned h = word_of(bh[(J + d / 4) % 3], d % 4);
-    const unsigned l = word_of(bl[(J + d / 4) % 3], d % 4);
-    hh[d] = dp4a_ss(a.x, h, hh[d]);
-    hx[d] = dp4a_su(a.x, l, hx[d]);
-    hx[d] = dp4a_us(a.y, h, hx[d]);
-    ll[d] = dp4a_uu(a.y, l, ll[d]);
-  }
-}
-
-__global__ void __launch_bounds__(32 * kRows)
-pitch_dp4a_kernel(const float* __restrict__ seg,
-                  const int* __restrict__ ana_len, float* __restrict__ corr,
-                  float* __restrict__ e2, int n) {
-  __shared__ Dp4aSmem smem[kRows];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRows + warp;
-  if (row >= n) return;
-  Dp4aSmem& sm = smem[warp];
-  const float* src = seg + static_cast<size_t>(row) * kSpan;
-  const int L = min(max(ana_len[row], 0), kAna);
-  if (L == 0) {
-    store_zero_row(corr, e2, row, lane);
-    return;
-  }
-
+// The row in shared memory for the dp4a loops: P, the byte-plane words at
+// every offset, and the masked base.
+__device__ __forceinline__ void dp4a_setup(Dp4aSmem& sm,
+                                           const float* __restrict__ src,
+                                           int L, int lane) {
   // The row as byte planes, 4 samples a word: word q = 32 m + lane holds
   // samples 4q .. 4q + 3 (hi signed, lo unsigned: s = 256 hi + lo).
   unsigned hw[kChunks], lw[kChunks];
@@ -232,6 +196,50 @@ pitch_dp4a_kernel(const float* __restrict__ seg,
     sm.base[g] = make_uint2(hw[m] & mask, lw[m] & mask);
   }
   __syncwarp();
+}
+
+constexpr int kG12 = 12;  // dp4a: lags a lane
+
+// One step g of the dp4a loop: the window is blocks J, J+1, J+2 (mod 3)
+// of the ring; block J+2 is loaded first (block q0 + g + 2).
+template <int J>
+__device__ __forceinline__ void dp4a_step(const Dp4aSmem& sm, int q0, int g,
+                                          uint4 (&bh)[3], uint4 (&bl)[3],
+                                          int (&hh)[kG12], int (&hx)[kG12],
+                                          int (&ll)[kG12]) {
+  constexpr int kNew = (J + 2) % 3;
+  bh[kNew] = sm.wh[q0 + g + 2];
+  bl[kNew] = sm.wl[q0 + g + 2];
+  const uint2 a = sm.base[g];
+#pragma unroll
+  for (int d = 0; d < kG12; ++d) {
+    const unsigned h = word_of(bh[(J + d / 4) % 3], d % 4);
+    const unsigned l = word_of(bl[(J + d / 4) % 3], d % 4);
+    hh[d] = dp4a_ss(a.x, h, hh[d]);
+    hx[d] = dp4a_su(a.x, l, hx[d]);
+    hx[d] = dp4a_us(a.y, h, hx[d]);
+    ll[d] = dp4a_uu(a.y, l, ll[d]);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kRows)
+pitch_dp4a_kernel(const float* __restrict__ seg,
+                  const int* __restrict__ ana_len, float* __restrict__ corr,
+                  float* __restrict__ e2, int n) {
+  __shared__ Dp4aSmem smem[kRows];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRows + warp;
+  if (row >= n) return;
+  Dp4aSmem& sm = smem[warp];
+  const float* src = seg + static_cast<size_t>(row) * kSpan;
+  const int L = min(max(ana_len[row], 0), kAna);
+  if (L == 0) {
+    store_zero_row(corr, e2, row, lane);
+    return;
+  }
+
+  dp4a_setup(sm, src, L, lane);
 
   const bool active = lane * kG12 < kLags;
   const int lag0 = kG12 * lane;
@@ -271,6 +279,104 @@ pitch_dp4a_kernel(const float* __restrict__ seg,
       c_out[lag0 + d] = c[d];
       e_out[lag0 + d] = e[d];
     }
+  }
+  store_row(c_out, e_out, corr, e2, row, lane);
+}
+
+// The 4 byte-plane products of base word pair a and window words (h, l).
+__device__ __forceinline__ void mac4(uint2 a, unsigned h, unsigned l, int& hh,
+                                     int& hx, int& ll) {
+  hh = dp4a_ss(a.x, h, hh);
+  hx = dp4a_su(a.x, l, hx);
+  hx = dp4a_us(a.y, h, hx);
+  ll = dp4a_uu(a.y, l, ll);
+}
+
+__device__ __forceinline__ float joined(int hh, int hx, int ll) {
+  return __ll2float_rn(static_cast<long long>(hh) * 65536 +
+                       static_cast<long long>(hx) * 256 + ll);
+}
+
+constexpr int kG8 = 8;                 // dp4a8: lags a lane, lags 0..255
+constexpr int kExtra = kLags - 32 * kG8;  // lags 256..275, one a lane
+
+// One step g of the dp4a8 loop: the window is blocks J, J+1 (mod 2) of
+// the ring; block J+1 (block q0 + g + 1) is loaded first. The extra lag
+// reads its word at xl + 4g.
+template <int J>
+__device__ __forceinline__ void dp4a8_step(const Dp4aSmem& sm, int q0, int xl,
+                                           int g, uint4 (&bh)[2],
+                                           uint4 (&bl)[2], int (&hh)[kG8 + 1],
+                                           int (&hx)[kG8 + 1],
+                                           int (&ll)[kG8 + 1]) {
+  constexpr int kNew = (J + 1) % 2;
+  bh[kNew] = sm.wh[q0 + g + 1];
+  bl[kNew] = sm.wl[q0 + g + 1];
+  const unsigned xh = reinterpret_cast<const unsigned*>(sm.wh)[xl + 4 * g];
+  const unsigned xw = reinterpret_cast<const unsigned*>(sm.wl)[xl + 4 * g];
+  const uint2 a = sm.base[g];
+#pragma unroll
+  for (int d = 0; d < kG8; ++d) {
+    mac4(a, word_of(bh[(J + d / 4) % 2], d % 4),
+         word_of(bl[(J + d / 4) % 2], d % 4), hh[d], hx[d], ll[d]);
+  }
+  mac4(a, xh, xw, hh[kG8], hx[kG8], ll[kG8]);
+}
+
+__global__ void __launch_bounds__(32 * kRows)
+pitch_dp4a8_kernel(const float* __restrict__ seg,
+                   const int* __restrict__ ana_len, float* __restrict__ corr,
+                   float* __restrict__ e2, int n) {
+  __shared__ Dp4aSmem smem[kRows];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRows + warp;
+  if (row >= n) return;
+  Dp4aSmem& sm = smem[warp];
+  const int L = min(max(ana_len[row], 0), kAna);
+  if (L == 0) {
+    store_zero_row(corr, e2, row, lane);
+    return;
+  }
+  dp4a_setup(sm, seg + static_cast<size_t>(row) * kSpan, L, lane);
+
+  // Lags 8 lane .. 8 lane + 7 and, on lanes below kExtra, 256 + lane (the
+  // other lanes' extra lag is computed and dropped).
+  const int lag0 = kG8 * lane;
+  const int q0 = 2 * lane;  // lag0 / 4
+  const int xl = 32 * kG8 + lane;
+  uint4 bh[2], bl[2];
+  bh[0] = sm.wh[q0];
+  bl[0] = sm.wl[q0];
+  int hh[kG8 + 1], hx[kG8 + 1], ll[kG8 + 1];
+#pragma unroll
+  for (int d = 0; d <= kG8; ++d) hh[d] = hx[d] = ll[d] = 0;
+  const int ng = (L + 3) / 4;
+  for (int g = 0; g < ng; g += 2) {  // base groups past ng are 0
+    dp4a8_step<0>(sm, q0, xl, g, bh, bl, hh, hx, ll);
+    dp4a8_step<1>(sm, q0, xl, g + 1, bh, bl, hh, hx, ll);
+  }
+  float c[kG8 + 1], e[kG8 + 1];
+#pragma unroll
+  for (int d = 0; d <= kG8; ++d) {
+    const int lag = d < kG8 ? lag0 + d : min(xl, kLags - 1);
+    c[d] = joined(hh[d], hx[d], ll[d]);
+    e[d] = __double2float_rn(sm.P[pidx(lag + L)] - sm.P[pidx(lag)]);
+  }
+  // The planes are read no more: they stage the row's corr and e2.
+  float* c_out = reinterpret_cast<float*>(sm.wh);
+  float* e_out = reinterpret_cast<float*>(sm.wl);
+  __syncwarp();
+#pragma unroll
+  for (int d = 0; d < kG8; d += 4) {
+    *reinterpret_cast<float4*>(c_out + lag0 + d) =
+        make_float4(c[d], c[d + 1], c[d + 2], c[d + 3]);
+    *reinterpret_cast<float4*>(e_out + lag0 + d) =
+        make_float4(e[d], e[d + 1], e[d + 2], e[d + 3]);
+  }
+  if (lane < kExtra) {
+    c_out[xl] = c[kG8];
+    e_out[xl] = e[kG8];
   }
   store_row(c_out, e_out, corr, e2, row, lane);
 }
@@ -368,6 +474,9 @@ int launch(int design, const float* seg, const int* ana_len, float* corr,
     if (design == kDp4a) {
       pitch_dp4a_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len,
                                                            corr, e2, n);
+    } else if (design == kDp4a8) {
+      pitch_dp4a8_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len,
+                                                            corr, e2, n);
     } else if (design == kF64) {
       pitch_f64_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len, corr,
                                                           e2, n);

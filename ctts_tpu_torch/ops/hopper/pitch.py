@@ -67,7 +67,7 @@ def pitch_corr(seg: torch.Tensor, ana_len: torch.Tensor):
     return corr, e2
 
 
-DESIGNS = {"dp4a": 0, "f64": 1}
+DESIGNS = {"dp4a": 0, "f64": 1, "dp4a8": 2}
 
 
 def pitch_corr_design(seg: torch.Tensor, ana_len: torch.Tensor, design: str):
