@@ -24,8 +24,7 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      the latency floor of the frame chain (the decide launch with the
      window already in shared memory); for compose and assemble the
      time of a zero fill of their output; for pitch an empty kernel's
-     launch (the launch floor); each design of the pitch and assemble
-     kernels, held and timed the same way;
+     launch (the launch floor);
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA),
      each with every kernel's launch count, the output checked against
@@ -551,36 +550,6 @@ def check_kernels(torch, np, hopper) -> dict:
                                f"version (max abs err {err})")
         results[name] = res
 
-    # Designs of the pitch and assemble kernels, each held to the plain
-    # version and timed at the phase-4 shapes.
-    designs = {}
-    for tag, a in (("", ana), (" L=220", ana220)):
-        want = hopper.pitch.pitch_corr_plain(seg, a)
-        for d in hopper.pitch.DESIGNS:
-            designs[f"pitch_corr{tag} {d}"] = (
-                lambda a=a, d=d: hopper.pitch.pitch_corr_design(seg, a, d),
-                want)
-    for offs, lv, outw, tag in ((offsets, live, OUTW, ""),
-                                (adv_offsets, adv_live, OUTW,
-                                 " adversarial")):
-        want = (hopper.assemble.assemble_plain(bufs, offs, lv, WREG, outw),)
-        for g in (1, 2, 4):
-            for acc in hopper.assemble.ACCESS:
-                designs[f"assemble{tag} g{g} {acc}"] = (
-                    lambda offs=offs, lv=lv, outw=outw, g=g, acc=acc:
-                    (hopper.assemble.assemble_design(bufs, offs, lv, WREG,
-                                                     outw, g, acc),), want)
-    for name, (fn, want) in designs.items():
-        got = fn()
-        got = got if isinstance(got, tuple) else (got,)
-        torch.cuda.synchronize()
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        res = {"equal": equal, "ms": device_ms(fn, 20)}
-        say(f"design {name}", res)
-        if not equal:
-            raise RuntimeError(f"design {name} differs from the plain "
-                               "version")
-        results[f"design {name}"] = res
     return results
 
 

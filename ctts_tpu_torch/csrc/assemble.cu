@@ -15,106 +15,62 @@
 // tables in device memory was instruction-bound instead: 2R dependent
 // loads and ~100 instructions for at most 2 loads and 1 store.
 //
-// Design: the grid is (output tile, sentence). A block stages its
+// Design: the grid is (1024-position tile, sentence). A block stages its
 // sentence's region tables in shared memory (kThreads regions at a time,
-// so any R). Each warp holds 128 x kGroups consecutive positions, 4 a
-// lane per group, lists the regions whose live span meets them with a
-// ballot (ascending r) and walks only that list, so any overlap depth
-// gives the same adds in the same order. A lane's 4 positions of a
-// region come from one or two aligned float4 loads (the region's shift
-// mod 4 is the same in every lane) and leave by one float4 store.
-// Positions that no region covers are written 0.0f with no read. Shapes
-// that are not 16-byte aligned take a scalar path with the same adds.
+// so any R). Each warp holds 128 consecutive positions, 4 a lane, lists
+// the regions whose live span meets them with a ballot (ascending r) and
+// walks only that list, so any overlap depth gives the same adds in the
+// same order. Every sample is read once and every output written once,
+// so loads and stores are streaming (evict-first); a lane's 4 outputs
+// leave as one float4. Positions that no region covers are written 0.0f
+// with no read. Shapes that are not 16-byte aligned take scalar stores.
+// Tiles of 2048 or 4096 positions, float4 loads (aligned, shifted in
+// registers) and plain (cached) accesses were each slower on the H100.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = kThreads * 4;  // positions a block writes
 constexpr unsigned kFull = 0xffffffffu;
 
-// How a lane reads its 4 positions of a region and writes them out.
-enum Access {
-  kScalar = 0,  // scalar loads and stores (any alignment)
-  kStore4 = 1,  // scalar loads, float4 stores
-  kLoad4 = 2,   // aligned float4 loads, shifted in registers; float4 stores
-  kStream = 3,  // as kStore4, with evict-first (streaming) loads and stores
-};
-
-// x[t] = row[j + t], t < 4, from the aligned float4s at j - s and
-// j - s + 4 (s = j & 3; the second is read only when s > 0).
-__device__ __forceinline__ void load_shifted(const float* __restrict__ row,
-                                             int j, int s, float* x) {
-  const float4* q = reinterpret_cast<const float4*>(row + (j - s));
-  const float4 a = q[0];
-  if (s == 0) {
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-    return;
-  }
-  const float4 c = q[1];
-  switch (s) {
-    case 1: x[0] = a.y; x[1] = a.z; x[2] = a.w; x[3] = c.x; break;
-    case 2: x[0] = a.z; x[1] = a.w; x[2] = c.x; x[3] = c.y; break;
-    default: x[0] = a.w; x[1] = c.x; x[2] = c.y; x[3] = c.z; break;
-  }
-}
-
 // Adds region row (live span [off, off + n)) to the lane's positions
-// p0 + 128 e + t.
-template <int kGroups, int kAccess>
+// p0 .. p0 + 3.
 __device__ __forceinline__ void add_region(const float* __restrict__ row,
-                                           int off, int n, int p0,
-                                           float (&v)[kGroups][4]) {
-  const int s = (p0 - off) & 3;  // p0 % 4 == 0: the same in every lane
+                                           int off, int n, int p0, float* v) {
+  const int j = p0 - off;
+  if (j >= 0 && j + 4 <= n) {
+    float x[4];
 #pragma unroll
-  for (int e = 0; e < kGroups; ++e) {
-    const int j = p0 + 128 * e - off;
-    if (j >= 0 && j + 4 <= n) {
-      float x[4];
-      if (kAccess == kLoad4) {
-        load_shifted(row, j, s, x);
-      } else if (kAccess == kStream) {
+    for (int t = 0; t < 4; ++t) x[t] = __ldcs(row + j + t);
 #pragma unroll
-        for (int t = 0; t < 4; ++t) x[t] = __ldcs(row + j + t);
-      } else {
+    for (int t = 0; t < 4; ++t) v[t] = __fadd_rn(v[t], x[t]);
+  } else if (j < n && j + 4 > 0) {  // the region's first or last samples
 #pragma unroll
-        for (int t = 0; t < 4; ++t) x[t] = row[j + t];
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) v[e][t] = __fadd_rn(v[e][t], x[t]);
-    } else if (j < n && j + 4 > 0) {  // the region's first or last samples
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (j + t >= 0 && j + t < n) v[e][t] = __fadd_rn(v[e][t], row[j + t]);
-      }
+    for (int t = 0; t < 4; ++t) {
+      if (j + t >= 0 && j + t < n) v[t] = __fadd_rn(v[t], __ldcs(row + j + t));
     }
   }
 }
 
-template <int kGroups, int kAccess>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 assemble_kernel(const float* __restrict__ bufs,
                 const int* __restrict__ offsets,
                 const int* __restrict__ live_len, float* __restrict__ out,
                 int R, int WREG, int OUTW) {
-  constexpr int kWarpSpan = 128 * kGroups;
-  constexpr int kTile = (kThreads / 32) * kWarpSpan;
   __shared__ int s_off[kThreads];
   __shared__ int s_len[kThreads];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int b = blockIdx.y;
-  const int lo = blockIdx.x * kTile + warp * kWarpSpan;  // the warp's span
-  const int hi = min(lo + kWarpSpan, OUTW);
+  const int lo = blockIdx.x * kTile + warp * 128;  // the warp's span
+  const int hi = min(lo + 128, OUTW);
   const int p0 = lo + 4 * lane;
   const size_t row0 = static_cast<size_t>(b) * R;
 
-  float v[kGroups][4];
-#pragma unroll
-  for (int e = 0; e < kGroups; ++e) {
-#pragma unroll
-    for (int t = 0; t < 4; ++t) v[e][t] = 0.0f;
-  }
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int r0 = 0; r0 < R; r0 += kThreads) {
     const int nr = min(kThreads, R - r0);
     if (r0 > 0) __syncthreads();  // every warp has walked the last chunk
@@ -132,41 +88,24 @@ assemble_kernel(const float* __restrict__ bufs,
       while (hits) {
         const int r = c + __ffs(hits) - 1;
         hits &= hits - 1;
-        add_region<kGroups, kAccess>(
-            bufs + (row0 + r0 + r) * static_cast<size_t>(WREG), s_off[r],
-            s_len[r], p0, v);
+        add_region(bufs + (row0 + r0 + r) * static_cast<size_t>(WREG),
+                   s_off[r], s_len[r], p0, v);
       }
     }
   }
 
   float* o = out + static_cast<size_t>(b) * OUTW;
+  if (kVec) {
+    if (p0 < OUTW) {  // OUTW % 4 == 0
+      __stcs(reinterpret_cast<float4*>(o + p0),
+             make_float4(v[0], v[1], v[2], v[3]));
+    }
+  } else {
 #pragma unroll
-  for (int e = 0; e < kGroups; ++e) {
-    const int p = p0 + 128 * e;
-    if (kAccess == kScalar) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (p + t < OUTW) o[p + t] = v[e][t];
-      }
-    } else if (p < OUTW) {  // OUTW % 4 == 0
-      const float4 w = make_float4(v[e][0], v[e][1], v[e][2], v[e][3]);
-      if (kAccess == kStream) {
-        __stcs(reinterpret_cast<float4*>(o + p), w);
-      } else {
-        *reinterpret_cast<float4*>(o + p) = w;
-      }
+    for (int t = 0; t < 4; ++t) {
+      if (p0 + t < OUTW) __stcs(o + p0 + t, v[t]);
     }
   }
-}
-
-template <int kGroups, int kAccess>
-void launch(const float* bufs, const int* offsets, const int* live_len,
-            float* out, int B, int R, int WREG, int OUTW,
-            cudaStream_t stream) {
-  constexpr int kTile = kThreads * 4 * kGroups;
-  const dim3 grid((OUTW + kTile - 1) / kTile, B);
-  assemble_kernel<kGroups, kAccess><<<grid, kThreads, 0, stream>>>(
-      bufs, offsets, live_len, out, R, WREG, OUTW);
 }
 
 bool aligned16(const void* p) {
@@ -180,44 +119,14 @@ extern "C" int ctts_assemble(const float* bufs, const int* offsets,
                              const int* live_len, float* out, int B, int R,
                              int WREG, int OUTW, cudaStream_t stream) {
   if (B > 0 && OUTW > 0) {
-    if (WREG % 4 == 0 && OUTW % 4 == 0 && aligned16(bufs) &&
-        aligned16(out)) {
-      launch<4, kLoad4>(bufs, offsets, live_len, out, B, R, WREG, OUTW,
-                        stream);
+    const dim3 grid((OUTW + kTile - 1) / kTile, B);
+    if (OUTW % 4 == 0 && aligned16(out)) {
+      assemble_kernel<true><<<grid, kThreads, 0, stream>>>(
+          bufs, offsets, live_len, out, R, WREG, OUTW);
     } else {
-      launch<4, kScalar>(bufs, offsets, live_len, out, B, R, WREG, OUTW,
-                         stream);
+      assemble_kernel<false><<<grid, kThreads, 0, stream>>>(
+          bufs, offsets, live_len, out, R, WREG, OUTW);
     }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Design comparison: the same function with 1, 2 or 4 float4 groups a
-// lane (tiles of 1024, 2048 or 4096 positions) and access kScalar,
-// kStore4, kLoad4 or kStream (all but kScalar need 16-byte aligned
-// shapes).
-extern "C" int ctts_assemble_design(const float* bufs, const int* offsets,
-                                    const int* live_len, float* out, int B,
-                                    int R, int WREG, int OUTW, int groups,
-                                    int access, cudaStream_t stream) {
-  if (access != kScalar && !(WREG % 4 == 0 && OUTW % 4 == 0 &&
-                             aligned16(bufs) && aligned16(out))) {
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  }
-  if (B > 0 && OUTW > 0) {
-#define CTTS_ASM(G, A)                                                    \
-  if (groups == G && access == A) {                                       \
-    launch<G, A>(bufs, offsets, live_len, out, B, R, WREG, OUTW, stream); \
-    return static_cast<int>(cudaGetLastError());                          \
-  }
-    CTTS_ASM(1, kScalar) CTTS_ASM(1, kStore4) CTTS_ASM(1, kLoad4)
-    CTTS_ASM(1, kStream)
-    CTTS_ASM(2, kScalar) CTTS_ASM(2, kStore4) CTTS_ASM(2, kLoad4)
-    CTTS_ASM(2, kStream)
-    CTTS_ASM(4, kScalar) CTTS_ASM(4, kStore4) CTTS_ASM(4, kLoad4)
-    CTTS_ASM(4, kStream)
-#undef CTTS_ASM
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

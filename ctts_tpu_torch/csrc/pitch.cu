@@ -16,23 +16,26 @@
 // ~7 instructions and 2 shared-memory loads on each multiply-add and
 // summed e2 term by term.
 //
-// Design: one warp per row, 4 rows a block, no block barrier. e2 comes
-// from a prefix sum of squares P[k] = sum_{i<k} s[i]^2, exact in f64
-// (< 2^39): e2[lag] = P[lag + L] - P[lag], the same integer. corr: each
-// lane holds G consecutive lags in registers and slides a window of the
-// segment across them, the base sample arriving as a shared-memory
-// broadcast, so a multiply-add costs about one instruction. Two exact
-// forms of the multiply-add are built (kDp4a, kF64).
-// kDp4a: byte planes s = 256 hi + lo (hi signed, lo unsigned), packed 4
-// samples a word at every offset; 4 dp4a give 4 samples of the 4 plane
-// products, kept in 3 int32 sums a lag (each below 2^24 for 220 terms)
-// and joined in int64 once. G = 12 lags a lane (23 lanes), the window
-// 3 aligned uint4 blocks a plane, one new block a step.
-// kF64: f64 fused multiply-adds; every partial sum is an integer below
-// 2^38, exact in any order. G = 9 lags a lane (31 lanes), the window 9
-// registers shifted by one sample a step.
+// Design: one warp per row, 4 rows a block, no block barrier.
+// - A row with L = 0 is all zeros: written with no read.
+// - e2 from a prefix sum of squares P[k] = sum_{i<k} s[i]^2, exact in f64
+//   (< 2^39): e2[lag] = P[lag + L] - P[lag], the same integer.
+// - corr on dp4a: byte planes s = 256 hi + lo (hi signed, lo unsigned),
+//   packed 4 samples a word at every offset; 4 dp4a give 4 samples of the
+//   4 plane products, kept in 3 int32 sums a lag (each below 2^24 for 220
+//   terms) and joined in int64 once. A multiply-add costs one dp4a.
+// - Lags tiled in registers: a lane holds lags 8 lane .. 8 lane + 7 on a
+//   window of 2 aligned uint4 blocks a plane (one new block a step), and
+//   lanes below 20 one more lag, 256 + lane (a word a step): 36 dp4a a
+//   step cover the row's 276 lags on all 32 lanes. The base word pair
+//   arrives as a shared-memory broadcast.
+// - Shared memory is laid out so that no access conflicts on a bank more
+//   than 2-way, and corr/e2 leave through a shared-memory stage as
+//   coalesced stores.
+// On the H100 the loop runs at the dp4a pipe's rate (half the int32
+// rate); f64 fused multiply-adds (9 lags a lane) and 12 lags a lane on
+// 23 lanes were each slower.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
@@ -42,9 +45,9 @@ constexpr int kLags = 276;   // lags 0..PITCH_MAX_LAG
 constexpr int kRows = 4;     // rows (warps) a block
 constexpr int kPadded = 512; // the segment, zero past kSpan
 constexpr int kChunks = kPadded / 128;  // of 4 samples a lane
+constexpr int kG = 8;                   // lags a lane: lags 0..255
+constexpr int kExtra = kLags - 32 * kG;  // lags 256..275, one a lane
 constexpr unsigned kFull = 0xffffffffu;
-
-enum Design { kDp4a = 0, kF64 = 1, kDp4a8 = 2 };
 
 // Samples k = 128 m + 4 lane + t (t < 4) of a row, 0 past kSpan.
 __device__ __forceinline__ void load4(const float* __restrict__ src, int m,
@@ -57,7 +60,7 @@ __device__ __forceinline__ void load4(const float* __restrict__ src, int m,
 }
 
 // P[k] lives at pidx(k): one pad slot every 16, so that lanes writing 4
-// consecutive entries, or reading 12 lags apart, hit distinct banks.
+// consecutive entries, or reading 8 lags apart, hit distinct banks.
 __device__ __forceinline__ int pidx(int k) { return k + (k >> 4); }
 constexpr int kPSize = kPadded + (kPadded >> 4) + 1;
 
@@ -106,6 +109,16 @@ __device__ __forceinline__ int dp4a_uu(unsigned a, unsigned b, int c) {
   return static_cast<int>(__dp4a(a, b, static_cast<unsigned>(c)));
 }
 
+// The 4 byte-plane products of base word pair a (hi, lo) and window
+// words (h, l): 4 samples of s[i] * s[i + lag] as 65536 hh + 256 hx + ll.
+__device__ __forceinline__ void mac4(uint2 a, unsigned h, unsigned l, int& hh,
+                                     int& hx, int& ll) {
+  hh = dp4a_ss(a.x, h, hh);
+  hx = dp4a_su(a.x, l, hx);
+  hx = dp4a_us(a.y, h, hx);
+  ll = dp4a_uu(a.y, l, ll);
+}
+
 __device__ __forceinline__ unsigned word_of(const uint4& q, int i) {
   return i == 0 ? q.x : (i == 1 ? q.y : (i == 2 ? q.z : q.w));
 }
@@ -117,45 +130,20 @@ __device__ __forceinline__ uint4 shifted_words(unsigned w, unsigned nx) {
                     __byte_perm(w, nx, 0x6543));
 }
 
-// A row with L = 0 has corr = e2 = 0 at every lag: written with no read.
-__device__ __forceinline__ void store_zero_row(float* __restrict__ corr,
-                                               float* __restrict__ e2,
-                                               int row, int lane) {
-  const size_t o = static_cast<size_t>(row) * kLags;
-  for (int k = lane; k < kLags; k += 32) {
-    corr[o + k] = 0.0f;
-    e2[o + k] = 0.0f;
-  }
-}
-
-// The row's corr and e2, staged in shared memory by lag, leave as
-// coalesced stores (a lane's lags are G apart from the next lane's).
-__device__ __forceinline__ void store_row(const float* c, const float* e,
-                                          float* __restrict__ corr,
-                                          float* __restrict__ e2, int row,
-                                          int lane) {
-  __syncwarp();
-  const size_t o = static_cast<size_t>(row) * kLags;
-  for (int k = lane; k < kLags; k += 32) {
-    corr[o + k] = c[k];
-    e2[o + k] = e[k];
-  }
-}
-
-struct Dp4aSmem {
+struct RowSmem {
   double P[kPSize];
   uint4 wh[kPadded / 4];  // wh[q].{x,y,z,w}: hi bytes of s[k .. k+3], k = 4q..4q+3
   uint4 wl[kPadded / 4];
   uint2 base[64];         // (hi, lo) words of the masked base, 0 past L
 };
 
-// The row in shared memory for the dp4a loops: P, the byte-plane words at
-// every offset, and the masked base.
-__device__ __forceinline__ void dp4a_setup(Dp4aSmem& sm,
-                                           const float* __restrict__ src,
-                                           int L, int lane) {
-  // The row as byte planes, 4 samples a word: word q = 32 m + lane holds
-  // samples 4q .. 4q + 3 (hi signed, lo unsigned: s = 256 hi + lo).
+// The row in shared memory: P, the byte-plane words at every offset, and
+// the masked base.
+__device__ __forceinline__ void setup_row(RowSmem& sm,
+                                          const float* __restrict__ src,
+                                          int L, int lane) {
+  // Byte planes, 4 samples a word: word q = 32 m + lane holds samples
+  // 4q .. 4q + 3.
   unsigned hw[kChunks], lw[kChunks];
   double carry = 0.0;
   if (lane == 0) sm.P[0] = 0.0;
@@ -198,117 +186,14 @@ __device__ __forceinline__ void dp4a_setup(Dp4aSmem& sm,
   __syncwarp();
 }
 
-constexpr int kG12 = 12;  // dp4a: lags a lane
-
-// One step g of the dp4a loop: the window is blocks J, J+1, J+2 (mod 3)
-// of the ring; block J+2 is loaded first (block q0 + g + 2).
+// One step g of the loop: the window is blocks J, J+1 (mod 2) of the
+// ring; block J+1 (block q0 + g + 1) is loaded first. The extra lag reads
+// its words at xl + 4g.
 template <int J>
-__device__ __forceinline__ void dp4a_step(const Dp4aSmem& sm, int q0, int g,
-                                          uint4 (&bh)[3], uint4 (&bl)[3],
-                                          int (&hh)[kG12], int (&hx)[kG12],
-                                          int (&ll)[kG12]) {
-  constexpr int kNew = (J + 2) % 3;
-  bh[kNew] = sm.wh[q0 + g + 2];
-  bl[kNew] = sm.wl[q0 + g + 2];
-  const uint2 a = sm.base[g];
-#pragma unroll
-  for (int d = 0; d < kG12; ++d) {
-    const unsigned h = word_of(bh[(J + d / 4) % 3], d % 4);
-    const unsigned l = word_of(bl[(J + d / 4) % 3], d % 4);
-    hh[d] = dp4a_ss(a.x, h, hh[d]);
-    hx[d] = dp4a_su(a.x, l, hx[d]);
-    hx[d] = dp4a_us(a.y, h, hx[d]);
-    ll[d] = dp4a_uu(a.y, l, ll[d]);
-  }
-}
-
-__global__ void __launch_bounds__(32 * kRows)
-pitch_dp4a_kernel(const float* __restrict__ seg,
-                  const int* __restrict__ ana_len, float* __restrict__ corr,
-                  float* __restrict__ e2, int n) {
-  __shared__ Dp4aSmem smem[kRows];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRows + warp;
-  if (row >= n) return;
-  Dp4aSmem& sm = smem[warp];
-  const float* src = seg + static_cast<size_t>(row) * kSpan;
-  const int L = min(max(ana_len[row], 0), kAna);
-  if (L == 0) {
-    store_zero_row(corr, e2, row, lane);
-    return;
-  }
-
-  dp4a_setup(sm, src, L, lane);
-
-  const bool active = lane * kG12 < kLags;
-  const int lag0 = kG12 * lane;
-  float c[kG12], e[kG12];
-  if (active) {
-    const int q0 = 3 * lane;  // lag0 / 4
-    uint4 bh[3], bl[3];
-    bh[0] = sm.wh[q0];
-    bl[0] = sm.wl[q0];
-    bh[1] = sm.wh[q0 + 1];
-    bl[1] = sm.wl[q0 + 1];
-    int hh[kG12], hx[kG12], ll[kG12];
-#pragma unroll
-    for (int d = 0; d < kG12; ++d) hh[d] = hx[d] = ll[d] = 0;
-    const int ng = (L + 3) / 4;
-    for (int g = 0; g < ng; g += 3) {  // base groups past ng are 0
-      dp4a_step<0>(sm, q0, g, bh, bl, hh, hx, ll);
-      dp4a_step<1>(sm, q0, g + 1, bh, bl, hh, hx, ll);
-      dp4a_step<2>(sm, q0, g + 2, bh, bl, hh, hx, ll);
-    }
-#pragma unroll
-    for (int d = 0; d < kG12; ++d) {
-      const long long sum = static_cast<long long>(hh[d]) * 65536 +
-                            static_cast<long long>(hx[d]) * 256 + ll[d];
-      c[d] = __ll2float_rn(sum);
-      e[d] = __double2float_rn(sm.P[pidx(lag0 + d + L)] -
-                               sm.P[pidx(lag0 + d)]);
-    }
-  }
-  // The planes are read no more: they stage the row's corr and e2.
-  float* c_out = reinterpret_cast<float*>(sm.wh);
-  float* e_out = reinterpret_cast<float*>(sm.wl);
-  __syncwarp();
-  if (active) {
-#pragma unroll
-    for (int d = 0; d < kG12; ++d) {
-      c_out[lag0 + d] = c[d];
-      e_out[lag0 + d] = e[d];
-    }
-  }
-  store_row(c_out, e_out, corr, e2, row, lane);
-}
-
-// The 4 byte-plane products of base word pair a and window words (h, l).
-__device__ __forceinline__ void mac4(uint2 a, unsigned h, unsigned l, int& hh,
-                                     int& hx, int& ll) {
-  hh = dp4a_ss(a.x, h, hh);
-  hx = dp4a_su(a.x, l, hx);
-  hx = dp4a_us(a.y, h, hx);
-  ll = dp4a_uu(a.y, l, ll);
-}
-
-__device__ __forceinline__ float joined(int hh, int hx, int ll) {
-  return __ll2float_rn(static_cast<long long>(hh) * 65536 +
-                       static_cast<long long>(hx) * 256 + ll);
-}
-
-constexpr int kG8 = 8;                 // dp4a8: lags a lane, lags 0..255
-constexpr int kExtra = kLags - 32 * kG8;  // lags 256..275, one a lane
-
-// One step g of the dp4a8 loop: the window is blocks J, J+1 (mod 2) of
-// the ring; block J+1 (block q0 + g + 1) is loaded first. The extra lag
-// reads its word at xl + 4g.
-template <int J>
-__device__ __forceinline__ void dp4a8_step(const Dp4aSmem& sm, int q0, int xl,
-                                           int g, uint4 (&bh)[2],
-                                           uint4 (&bl)[2], int (&hh)[kG8 + 1],
-                                           int (&hx)[kG8 + 1],
-                                           int (&ll)[kG8 + 1]) {
+__device__ __forceinline__ void step(const RowSmem& sm, int q0, int xl, int g,
+                                     uint4 (&bh)[2], uint4 (&bl)[2],
+                                     int (&hh)[kG + 1], int (&hx)[kG + 1],
+                                     int (&ll)[kG + 1]) {
   constexpr int kNew = (J + 1) % 2;
   bh[kNew] = sm.wh[q0 + g + 1];
   bl[kNew] = sm.wl[q0 + g + 1];
@@ -316,175 +201,79 @@ __device__ __forceinline__ void dp4a8_step(const Dp4aSmem& sm, int q0, int xl,
   const unsigned xw = reinterpret_cast<const unsigned*>(sm.wl)[xl + 4 * g];
   const uint2 a = sm.base[g];
 #pragma unroll
-  for (int d = 0; d < kG8; ++d) {
+  for (int d = 0; d < kG; ++d) {
     mac4(a, word_of(bh[(J + d / 4) % 2], d % 4),
          word_of(bl[(J + d / 4) % 2], d % 4), hh[d], hx[d], ll[d]);
   }
-  mac4(a, xh, xw, hh[kG8], hx[kG8], ll[kG8]);
+  mac4(a, xh, xw, hh[kG], hx[kG], ll[kG]);
 }
 
 __global__ void __launch_bounds__(32 * kRows)
-pitch_dp4a8_kernel(const float* __restrict__ seg,
-                   const int* __restrict__ ana_len, float* __restrict__ corr,
-                   float* __restrict__ e2, int n) {
-  __shared__ Dp4aSmem smem[kRows];
+pitch_corr_kernel(const float* __restrict__ seg,
+                  const int* __restrict__ ana_len, float* __restrict__ corr,
+                  float* __restrict__ e2, int n) {
+  __shared__ RowSmem smem[kRows];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kRows + warp;
   if (row >= n) return;
-  Dp4aSmem& sm = smem[warp];
+  const size_t o = static_cast<size_t>(row) * kLags;
   const int L = min(max(ana_len[row], 0), kAna);
   if (L == 0) {
-    store_zero_row(corr, e2, row, lane);
+    for (int k = lane; k < kLags; k += 32) {
+      corr[o + k] = 0.0f;
+      e2[o + k] = 0.0f;
+    }
     return;
   }
-  dp4a_setup(sm, seg + static_cast<size_t>(row) * kSpan, L, lane);
+  RowSmem& sm = smem[warp];
+  setup_row(sm, seg + static_cast<size_t>(row) * kSpan, L, lane);
 
   // Lags 8 lane .. 8 lane + 7 and, on lanes below kExtra, 256 + lane (the
   // other lanes' extra lag is computed and dropped).
-  const int lag0 = kG8 * lane;
+  const int lag0 = kG * lane;
   const int q0 = 2 * lane;  // lag0 / 4
-  const int xl = 32 * kG8 + lane;
+  const int xl = 32 * kG + lane;
   uint4 bh[2], bl[2];
   bh[0] = sm.wh[q0];
   bl[0] = sm.wl[q0];
-  int hh[kG8 + 1], hx[kG8 + 1], ll[kG8 + 1];
+  int hh[kG + 1], hx[kG + 1], ll[kG + 1];
 #pragma unroll
-  for (int d = 0; d <= kG8; ++d) hh[d] = hx[d] = ll[d] = 0;
+  for (int d = 0; d <= kG; ++d) hh[d] = hx[d] = ll[d] = 0;
   const int ng = (L + 3) / 4;
   for (int g = 0; g < ng; g += 2) {  // base groups past ng are 0
-    dp4a8_step<0>(sm, q0, xl, g, bh, bl, hh, hx, ll);
-    dp4a8_step<1>(sm, q0, xl, g + 1, bh, bl, hh, hx, ll);
+    step<0>(sm, q0, xl, g, bh, bl, hh, hx, ll);
+    step<1>(sm, q0, xl, g + 1, bh, bl, hh, hx, ll);
   }
-  float c[kG8 + 1], e[kG8 + 1];
+  float c[kG + 1], e[kG + 1];
 #pragma unroll
-  for (int d = 0; d <= kG8; ++d) {
-    const int lag = d < kG8 ? lag0 + d : min(xl, kLags - 1);
-    c[d] = joined(hh[d], hx[d], ll[d]);
+  for (int d = 0; d <= kG; ++d) {
+    const int lag = d < kG ? lag0 + d : min(xl, kLags - 1);
+    c[d] = __ll2float_rn(static_cast<long long>(hh[d]) * 65536 +
+                         static_cast<long long>(hx[d]) * 256 + ll[d]);
     e[d] = __double2float_rn(sm.P[pidx(lag + L)] - sm.P[pidx(lag)]);
   }
-  // The planes are read no more: they stage the row's corr and e2.
+  // The planes are read no more: they stage the row's corr and e2, which
+  // leave as coalesced stores.
   float* c_out = reinterpret_cast<float*>(sm.wh);
   float* e_out = reinterpret_cast<float*>(sm.wl);
   __syncwarp();
 #pragma unroll
-  for (int d = 0; d < kG8; d += 4) {
+  for (int d = 0; d < kG; d += 4) {
     *reinterpret_cast<float4*>(c_out + lag0 + d) =
         make_float4(c[d], c[d + 1], c[d + 2], c[d + 3]);
     *reinterpret_cast<float4*>(e_out + lag0 + d) =
         make_float4(e[d], e[d + 1], e[d + 2], e[d + 3]);
   }
   if (lane < kExtra) {
-    c_out[xl] = c[kG8];
-    e_out[xl] = e[kG8];
+    c_out[xl] = c[kG];
+    e_out[xl] = e[kG];
   }
-  store_row(c_out, e_out, corr, e2, row, lane);
-}
-
-constexpr int kG9 = 9;  // f64: lags a lane
-
-struct F64Smem {
-  double P[kPSize];
-  double s[kPadded + 16];     // the segment, 0 past kSpan
-  double base[kAna + kG9];    // s[i] for i < L, else 0
-};
-
-__global__ void __launch_bounds__(32 * kRows)
-pitch_f64_kernel(const float* __restrict__ seg,
-                 const int* __restrict__ ana_len, float* __restrict__ corr,
-                 float* __restrict__ e2, int n) {
-  __shared__ F64Smem smem[kRows];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRows + warp;
-  if (row >= n) return;
-  F64Smem& sm = smem[warp];
-  const float* src = seg + static_cast<size_t>(row) * kSpan;
-  const int L = min(max(ana_len[row], 0), kAna);
-  if (L == 0) {
-    store_zero_row(corr, e2, row, lane);
-    return;
-  }
-
-  double carry = 0.0;
-  if (lane == 0) sm.P[0] = 0.0;
-#pragma unroll
-  for (int m = 0; m < kChunks; ++m) {
-    int v[4];
-    load4(src, m, lane, v);
-    prefix4(v, m, lane, sm.P, carry);
-  }
-  // The segment again, a sample a lane (conflict-free stores), every
-  // load in flight at once.
-  double x[kPadded / 32];
-#pragma unroll
-  for (int c = 0; c < kPadded / 32; ++c) {
-    const int k = 32 * c + lane;
-    x[c] = k < kSpan ? static_cast<double>(src[k]) : 0.0;
-  }
-#pragma unroll
-  for (int c = 0; c < kPadded / 32; ++c) {
-    const int k = 32 * c + lane;
-    sm.s[k] = x[c];
-    if (k < kAna + kG9) sm.base[k] = k < L ? x[c] : 0.0;
-  }
-  if (lane < 16) sm.s[kPadded + lane] = 0.0;
   __syncwarp();
-
-  const int lag0 = kG9 * min(lane, 30);  // 31 lanes cover lags 0..278
-  double r[kG9], acc[kG9];
-#pragma unroll
-  for (int d = 0; d < kG9; ++d) {
-    r[d] = sm.s[lag0 + d];
-    acc[d] = 0.0;
+  for (int k = lane; k < kLags; k += 32) {
+    corr[o + k] = c_out[k];
+    e2[o + k] = e_out[k];
   }
-  for (int i0 = 0; i0 < L; i0 += kG9) {  // base samples past L are 0
-    // Ring: at step i0 + j the window s[i0 + j + lag0 + d] is r[(j+d) % 9].
-#pragma unroll
-    for (int j = 0; j < kG9; ++j) {
-      const double a = sm.base[i0 + j];
-#pragma unroll
-      for (int d = 0; d < kG9; ++d) {
-        acc[d] = __fma_rn(a, r[(j + d) % kG9], acc[d]);
-      }
-      r[j] = sm.s[i0 + j + lag0 + kG9];
-    }
-  }
-  // After the loop the segment's slots hold the row's corr and e2.
-  float* c_out = reinterpret_cast<float*>(sm.s);
-  float* e_out = c_out + kLags + 12;
-  __syncwarp();
-  if (lane < 31) {
-#pragma unroll
-    for (int d = 0; d < kG9; ++d) {
-      const int lag = lag0 + d;
-      if (lag < kLags) {
-        c_out[lag] = __double2float_rn(acc[d]);
-        e_out[lag] = __double2float_rn(sm.P[pidx(lag + L)] - sm.P[pidx(lag)]);
-      }
-    }
-  }
-  store_row(c_out, e_out, corr, e2, row, lane);
-}
-
-int launch(int design, const float* seg, const int* ana_len, float* corr,
-           float* e2, int n, cudaStream_t stream) {
-  if (n > 0) {
-    const int blocks = (n + kRows - 1) / kRows;
-    if (design == kDp4a) {
-      pitch_dp4a_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len,
-                                                           corr, e2, n);
-    } else if (design == kDp4a8) {
-      pitch_dp4a8_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len,
-                                                            corr, e2, n);
-    } else if (design == kF64) {
-      pitch_f64_kernel<<<blocks, 32 * kRows, 0, stream>>>(seg, ana_len, corr,
-                                                          e2, n);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -493,12 +282,9 @@ int launch(int design, const float* seg, const int* ana_len, float* corr,
 extern "C" int ctts_pitch_corr(const float* seg, const int* ana_len,
                                float* corr, float* e2, int n,
                                cudaStream_t stream) {
-  return launch(kDp4a, seg, ana_len, corr, e2, n, stream);
-}
-
-// Design comparison: the same function by kDp4a (0) or kF64 (1).
-extern "C" int ctts_pitch_corr_design(const float* seg, const int* ana_len,
-                                      float* corr, float* e2, int n,
-                                      int design, cudaStream_t stream) {
-  return launch(design, seg, ana_len, corr, e2, n, stream);
+  if (n > 0) {
+    pitch_corr_kernel<<<(n + kRows - 1) / kRows, 32 * kRows, 0, stream>>>(
+        seg, ana_len, corr, e2, n);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

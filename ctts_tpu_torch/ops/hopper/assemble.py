@@ -55,25 +55,3 @@ def assemble(bufs, offsets, live_len, WREG: int, OUTW: int):
     launches += 1
     return out
 
-
-ACCESS = {"scalar": 0, "store4": 1, "load4": 2, "stream": 3}
-
-
-def assemble_design(bufs, offsets, live_len, WREG: int, OUTW: int,
-                    groups: int, access: str):
-    """assemble by one of the kernel's designs: `groups` float4 groups a
-    lane (1, 2 or 4), `access` one of ACCESS (a measurement, not counted
-    in `launches`). Needs CUDA tensors."""
-    if bufs.device.type != "cuda":
-        raise ValueError(f"assemble_design: needs a CUDA tensor, not "
-                         f"{bufs.device}")
-    B, R = offsets.shape
-    dev = bufs.device
-    check(bufs, "bufs", torch.float32, (B, R * WREG), dev)
-    check(offsets, "offsets", torch.int32, (B, R), dev)
-    check(live_len, "live_len", torch.int32, (B, R), dev)
-    out = torch.empty(B, OUTW, dtype=torch.float32, device=dev)
-    launch("ctts_assemble_design", bufs.data_ptr(), offsets.data_ptr(),
-           live_len.data_ptr(), out.data_ptr(), B, R, WREG, OUTW, groups,
-           ACCESS[access], stream_handle())
-    return out

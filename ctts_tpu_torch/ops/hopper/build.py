@@ -36,12 +36,10 @@ _I = ctypes.c_int
 # void*, sizes are int; each returns its cudaError_t.
 SIGNATURES = {
     "ctts_pitch_corr": [_P, _P, _P, _P, _I, _P],
-    "ctts_pitch_corr_design": [_P, _P, _P, _P, _I, _I, _P],
     "ctts_compose": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
     "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ctts_assemble_design": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],
     "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -66,22 +66,3 @@ def pitch_corr(seg: torch.Tensor, ana_len: torch.Tensor):
     launches += 1
     return corr, e2
 
-
-DESIGNS = {"dp4a": 0, "f64": 1, "dp4a8": 2}
-
-
-def pitch_corr_design(seg: torch.Tensor, ana_len: torch.Tensor, design: str):
-    """pitch_corr by one of the kernel's designs (a measurement, not
-    counted in `launches`). Needs CUDA tensors."""
-    n = seg.shape[0]
-    if seg.device.type != "cuda":
-        raise ValueError(f"pitch_corr_design: needs a CUDA tensor, not "
-                         f"{seg.device}")
-    check(seg, "seg", torch.float32, (n, SPAN), seg.device)
-    check(ana_len, "ana_len", torch.int32, (n,), seg.device)
-    corr = torch.empty(n, NLAG, dtype=torch.float32, device=seg.device)
-    e2 = torch.empty(n, NLAG, dtype=torch.float32, device=seg.device)
-    launch("ctts_pitch_corr_design", seg.data_ptr(), ana_len.data_ptr(),
-           corr.data_ptr(), e2.data_ptr(), n, DESIGNS[design],
-           stream_handle())
-    return corr, e2

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Device time of each pitch_corr design against the analysis length.
+"""Device time of the pitch_corr kernel against the analysis length.
 
 Run from the root of a checkout on a machine with one CUDA card:
     python3 tools/torch_pitch_sweep.py
 For n = 2048, 528 and 132 rows of chip_smoke.py's pitch segments, every
 row at one analysis length L (0, 4, 60, 120, 220), it prints the device
-time (chip_smoke.device_ms: calls queued behind a spin kernel) of each
-design of the kernel, after an empty kernel's launch: what a row costs
+time (chip_smoke.device_ms: calls queued behind a spin kernel) of the
+kernel, after an empty kernel's launch: what a row costs
 before its first multiply-add (L = 0, 4), how the cost grows with L, and
 how both change as the card fills (528 rows = 4 warps on each of 132
 SMs, 2048 = 15.5).
@@ -40,10 +40,8 @@ def main() -> int:
         s = seg[:n].contiguous()
         for L in (0, 4, 60, 120, 220):
             a = torch.full((n,), L, dtype=torch.int32, device="cuda")
-            ms = {d: cs.device_ms(
-                lambda d=d: hopper.pitch.pitch_corr_design(s, a, d), 50)
-                for d in hopper.pitch.DESIGNS}
-            print("n", n, "L", L, ms, flush=True)
+            ms = cs.device_ms(lambda: hopper.pitch.pitch_corr(s, a), 50)
+            print("n", n, "L", L, "ms", ms, flush=True)
     print(os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip())
     return 0
