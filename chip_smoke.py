@@ -390,11 +390,10 @@ def check_kernels(torch, np, hopper) -> dict:
     # is the floor beside the pitch kernel, whose bound is below it.
     launch_floor = {"host_ms": time_ms(hopper.build.empty_launch, 50),
                     "ms": device_ms(hopper.build.empty_launch, 200)}
-    pitch_work = bound(seg.nbytes + ana.nbytes + 2 * seg.shape[0] * 276 * 4,
-                       pitch_ops(np, ins["pitch"][1]))
-    pitch220_work = bound(
-        seg.nbytes + ana.nbytes + 2 * seg.shape[0] * 276 * 4,
-        pitch_ops(np, np.full(seg.shape[0], 220)))
+    pitch_bytes = seg.nbytes + ana.nbytes + 2 * seg.shape[0] * 276 * 4
+    pitch_work = bound(pitch_bytes, pitch_ops(np, ins["pitch"][1]))
+    pitch220_work = bound(pitch_bytes,
+                          pitch_ops(np, np.full(seg.shape[0], 220)))
     for w in (pitch_work, pitch220_work):
         w["launch_floor_ms"] = launch_floor["ms"]
         w["launch_floor_host_ms"] = launch_floor["host_ms"]
@@ -549,7 +548,6 @@ def check_kernels(torch, np, hopper) -> dict:
             raise RuntimeError(f"{name}: kernel differs from its plain "
                                f"version (max abs err {err})")
         results[name] = res
-
     return results
 
 
@@ -634,9 +632,11 @@ def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
 
     # First-use set-up, untimed; at speed 1.0 it also records the
     # analysis length of every row the pitch kernel gets.
-    lengths = record_pitch_lengths(torch, hopper, lambda: timed_stream(1)) \
-        if speed == 1.0 else None
-    if lengths is None:
+    lengths = None
+    if speed == 1.0:
+        lengths = record_pitch_lengths(torch, hopper,
+                                       lambda: timed_stream(1))
+    else:
         timed_stream(1)
     walls_1, walls_n = [], []
     for rep in range(TIMING_REPEATS):
@@ -661,9 +661,7 @@ def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
     if missing:
         raise RuntimeError(f"kernels not launched by the path at speed "
                            f"{speed}: {missing}")
-    out = {"pitch_rows": lengths} if lengths is not None else {}
     return {
-        **out,
         "speed": speed, "batches": len(batches),
         "sentences_per_batch": len(texts), "distinct_texts": len(TEXTS),
         "oracle_max_abs_diff": worst, "launches": launches,
@@ -671,7 +669,7 @@ def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
         "stream_1_batch_s": walls_1, "stream_3_batches_s": walls_n,
         "stream_audio_s_per_wall_s": sum(audio) / wall_n,
         "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
-        "max_memory_allocated_bytes": peak,
+        "max_memory_allocated_bytes": peak, "pitch_rows": lengths,
     }
 
 

@@ -54,4 +54,3 @@ def assemble(bufs, offsets, live_len, WREG: int, OUTW: int):
            stream_handle())
     launches += 1
     return out
-

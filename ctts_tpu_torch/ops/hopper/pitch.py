@@ -65,4 +65,3 @@ def pitch_corr(seg: torch.Tensor, ana_len: torch.Tensor):
            corr.data_ptr(), e2.data_ptr(), n, stream_handle())
     launches += 1
     return corr, e2
-

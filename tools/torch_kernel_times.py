@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the pitch_corr (K2) and assemble (K4) kernels of any
-checkout of the port, at chip_smoke.py's phase-4 inputs.
+checkout of the port, at chip_smoke.py's phase-4 inputs, and of K2
+against the analysis length.
 
     python3 tools/torch_kernel_times.py [--root DIR]
 
@@ -11,7 +12,12 @@ come from this checkout's chip_smoke.py, so two trees are timed alike
 bracketed by CUDA events, which for these kernels measures the host's
 enqueue). Each case prints the kernel's device time (device_ms: calls
 queued behind a spin kernel), its one-call time (time_ms) and whether
-it equals the tree's plain version. Needs one CUDA card.
+it equals the tree's plain version. Then, for n = 2048, 528 and 132 of
+the pitch rows, every row at one analysis length L (0, 4, 60, 120,
+220), K2's device time: what a row costs before its first multiply-add
+(L = 0, 4), how the cost grows with L, and how both change as the card
+fills (528 rows = 4 warps on each of 132 SMs, 2048 = 15.5). Needs one
+CUDA card.
 """
 
 import argparse
@@ -81,6 +87,14 @@ def main() -> int:
             "equal": all(torch.equal(g, w) for g, w in zip(got, want)),
             "ms": cs.device_ms(kern, 50), "host_ms": cs.time_ms(kern, 20)}),
             flush=True)
+    for n in (2048, 528, 132):
+        s = seg[:n].contiguous()
+        for L in (0, 4, 60, 120, 220):
+            a = torch.full((n,), L, dtype=torch.int32, device="cuda")
+            print(f"sweep pitch_corr n={n} L={L} " + json.dumps({
+                "root": root,
+                "ms": cs.device_ms(lambda: P.pitch_corr(s, a), 50)}),
+                flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
