@@ -26,18 +26,32 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      time of a zero fill of their output; for pitch an empty kernel's
      launch (the launch floor);
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
-     16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA),
-     each with every kernel's launch count, the output checked against
-     the NumPy oracle (equal lengths, <= 2 LSB), the steady-state
-     audio-seconds of output per wall-second and peak memory (at 1.0
-     also the share of the pitch kernel's rows at L = 220); then one
-     synchronous synthesize of the batch at speed 0.5, held to the
-     oracle the same way. The stream yields batch N after batch N+2 is
-     enqueued, so per-yield intervals are not batch periods: the steady
-     rate of batches 2-3 is their audio over the wall time a 3-batch
-     stream takes beyond a 1-batch stream (the same fill and drain
-     cancel), medians of interleaved repeats; the last 3-batch stream
-     is the counted run.
+     16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA), as
+     served (the wire codec on: the default on a CUDA device) and with
+     wire=False, in turns. Each speed shows every kernel's launch count
+     on the served stream, the two streams' outputs equal bit for bit
+     and held to the NumPy oracle (equal lengths, <= 2 LSB), and for
+     each way the steady-state audio-seconds of output per wall-second
+     and peak memory (at 1.0 also the share of the pitch kernel's rows
+     at L = 220); for the codec, wire bytes over valid int16 bytes, the
+     encode's device time on that stream's last packed buffer, the one
+     copy of lengths, overflow counts and classes to the host, and
+     decode_host's host time per batch. Then one synchronous synthesize
+     of the batch at speed 0.5, held to the oracle the same way. The
+     stream yields batch N after batch N+2 is enqueued, so per-yield
+     intervals are not batch periods: the steady rate of batches 2-3 is
+     their audio over the wall time a 3-batch stream takes beyond a
+     1-batch stream (the same fill and drain cancel), medians of
+     interleaved repeats; the last 3-batch stream is the counted run;
+  6. the entry points: `python -m ctts_tpu_torch.cli build` of the
+     generated dataset (byte-equal to phase 5's voice.db), then `synth`
+     in a subprocess at speed 1.0 (no flags: the torch executor on the
+     card) and 0.5 (--executor=torch --device=cuda), each WAV held to the
+     oracle; the same two commands through cli.main in this process
+     with their kernel launch counts, and --executor=native held to the
+     oracle; then CTTSEngine.synthesize_batch over the 120-utterance
+     corpus (ctts_tpu_torch/testing/corpus.py), one call per speed, every
+     utterance held to the oracle, with its launch counts and wall time.
 With --kernels-only the script stops after phase 4.
 The script imports nothing of the JAX package: the oracle, the voice
 builder and the plan compiler are the port's own copies. The last line
@@ -46,6 +60,8 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import sys
@@ -78,7 +94,7 @@ FLOOR = {"U": 32, "R": 16, "FD": 8, "WREG": 32768, "SMAX": 114688,
          "CONTW": 28672, "WIN": 2048, "CFMAX": 1024}
 BATCH_MULT = 8
 N_BATCHES = 3
-TIMING_REPEATS = 3  # interleaved 1- and 3-batch streams, medians used
+TIMING_REPEATS = 5  # interleaved 1- and 3-batch streams, medians used
 SAMPLE_RATE = 22050
 LSB_BOUND = 2       # int16 bound against the oracle (tests/test_device_executor.py)
 
@@ -569,30 +585,38 @@ def make_voice(root: str) -> str:
     return dbp
 
 
-def check_oracle(np, db, config, batches, speed: float) -> int:
-    """Every output equals the port's NumPy oracle in length and within
-    LSB_BOUND; returns the largest difference."""
+def oracle(db, config, text: str, speed: float):
+    """The port's NumPy oracle for one text (no normalization rules)."""
     from ctts_tpu_torch.plan.compiler import compile_plan
     from ctts_tpu_torch.synth.oracle import execute_plan_oracle
 
+    return execute_plan_oracle(compile_plan(db, text, config, None, speed),
+                               db)
+
+
+def held_to(np, got, ref, what: str) -> int:
+    """`got` equals the oracle's `ref` in dtype and length and is within
+    LSB_BOUND of it; returns the largest difference."""
+    if got.dtype != np.int16 or got.shape != ref.shape:
+        raise RuntimeError(f"{what}: length {got.shape} vs oracle "
+                           f"{ref.shape}")
+    d = int(np.abs(got.astype(np.int32)
+                   - ref.astype(np.int32)).max(initial=0))
+    if d > LSB_BOUND:
+        raise RuntimeError(f"{what}: max |diff| {d} LSB vs the oracle")
+    return d
+
+
+def check_oracle(np, db, config, batches, speed: float) -> int:
+    """Every output of the bench batches is held to the oracle; returns
+    the largest difference."""
     worst = 0
     for j, text in enumerate(TEXTS):
-        ref = execute_plan_oracle(
-            compile_plan(db, text, config, None, speed), db)
+        ref = oracle(db, config, text, speed)
         for outs in batches:
             for rep in range(BATCH_MULT):
-                got = outs[rep * len(TEXTS) + j]
-                if got.dtype != np.int16 or got.shape != ref.shape:
-                    raise RuntimeError(
-                        f"{text!r} at speed {speed}: length {got.shape} "
-                        f"vs oracle {ref.shape}")
-                d = int(np.abs(got.astype(np.int32)
-                               - ref.astype(np.int32)).max(initial=0))
-                worst = max(worst, d)
-                if d > LSB_BOUND:
-                    raise RuntimeError(
-                        f"{text!r} at speed {speed}: max |diff| {d} LSB "
-                        "vs the oracle")
+                worst = max(worst, held_to(np, outs[rep * len(TEXTS) + j],
+                                           ref, f"{text!r} at {speed}"))
     return worst
 
 
@@ -620,100 +644,338 @@ def record_pitch_lengths(torch, hopper, run) -> dict:
             "mean_L": float(L.double().mean()) if n else 0.0}
 
 
-def serve(torch, np, hopper, bs, speed: float, kernels: list) -> dict:
-    """stream() over N_BATCHES batches at one speed, timed and held to
-    the oracle; the launch counts are those of the last 3-batch stream,
-    and every kernel in `kernels` must have launched there."""
-    texts = TEXTS * BATCH_MULT
+class WireProbe:
+    """Wraps ops/wire.py's encode and decode_host while installed: keeps
+    the last packed buffer encode was given and its classes, and the
+    word count, sample count and host seconds of every decode_host
+    call (the drain thread makes them)."""
 
-    def timed_stream(n):
+    def __init__(self, wire):
+        self.wire = wire
+        self.encode, self.decode_host = wire.encode, wire.decode_host
+        self.last = None
+        self.decodes = []
+
+    def _encode(self, p):
+        words, classes = self.encode(p)
+        self.last = (p, classes)
+        return words, classes
+
+    def _decode_host(self, words, classes, nsamples):
+        t0 = time.perf_counter()
+        out = self.decode_host(words, classes, nsamples)
+        self.decodes.append((int(words.shape[0]), int(nsamples),
+                             time.perf_counter() - t0))
+        return out
+
+    def __enter__(self):
+        self.wire.encode, self.wire.decode_host = (self._encode,
+                                                   self._decode_host)
+        return self
+
+    def __exit__(self, *exc):
+        self.wire.encode, self.wire.decode_host = (self.encode,
+                                                   self.decode_host)
+
+
+def sync_ms(torch, np, classes, B: int, reps: int = 21) -> float:
+    """Host milliseconds of the trim's one copy: out_lens, overflow
+    counts [B] and classes, concatenated on the card and brought to
+    the host (median over `reps`, the card idle before each)."""
+    lens = torch.zeros(B, dtype=torch.int32, device=classes.device)
+    ovf = torch.zeros_like(lens)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cat([lens, ovf, classes]).cpu().numpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def serve(torch, np, hopper, served, plain, speed: float,
+          kernels: list) -> dict:
+    """stream() over N_BATCHES batches at one speed through `served`
+    (the wire codec on) and `plain` (wire=False) in turns, timed, equal
+    to each other and held to the oracle; the launch counts are those
+    of the served last 3-batch stream, and every kernel in `kernels`
+    must have launched there."""
+    from ctts_tpu_torch.ops import wire
+
+    texts = TEXTS * BATCH_MULT
+    ways = {"wire": served, "plain": plain}
+
+    def timed_stream(bs, n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = list(bs.stream((texts for _ in range(n)), speed=speed))
         return got, time.perf_counter() - t0
 
-    # First-use set-up, untimed; at speed 1.0 it also records the
-    # analysis length of every row the pitch kernel gets.
-    lengths = None
-    if speed == 1.0:
-        lengths = record_pitch_lengths(torch, hopper,
-                                       lambda: timed_stream(1))
-    else:
-        timed_stream(1)
-    walls_1, walls_n = [], []
-    for rep in range(TIMING_REPEATS):
-        walls_1.append(timed_stream(1)[1])
-        if rep == TIMING_REPEATS - 1:
-            torch.cuda.reset_peak_memory_stats()
-            hopper.reset_launches()
-        batches, wall = timed_stream(N_BATCHES)
-        walls_n.append(wall)
-    launches = hopper.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    wall_1 = sorted(walls_1)[TIMING_REPEATS // 2]
-    wall_n = sorted(walls_n)[TIMING_REPEATS // 2]
+    # Host seconds of each batch's drain (_finish: wait for the copy,
+    # decode with the codec, slice rows), on the drain thread but the
+    # last batch's, which runs on the main thread.
+    drains = {k: [] for k in ways}
 
-    if len(batches) != N_BATCHES or any(len(o) != len(texts)
-                                        for o in batches):
-        raise RuntimeError("stream did not yield every batch in full")
-    audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
-             for outs in batches]
-    worst = check_oracle(np, bs.db, bs.config, batches, speed)
+    def timed_finish(bs, key):
+        finish = bs._finish
+
+        def run(trimmed, spans):
+            t0 = time.perf_counter()
+            out = finish(trimmed, spans)
+            drains[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for key, bs in ways.items():
+        bs._finish = timed_finish(bs, key)
+    with WireProbe(wire) as probe:
+        # First-use set-up, untimed; at speed 1.0 it also records the
+        # analysis length of every row the pitch kernel gets.
+        lengths = None
+        if speed == 1.0:
+            lengths = record_pitch_lengths(
+                torch, hopper, lambda: timed_stream(served, 1))
+        else:
+            timed_stream(served, 1)
+        timed_stream(plain, 1)
+        walls = {k: ([], []) for k in ways}
+        batches, peak = {}, {}
+        for rep in range(TIMING_REPEATS):
+            last = rep == TIMING_REPEATS - 1
+            for key in (ways if rep % 2 == 0 else list(ways)[::-1]):
+                bs = ways[key]
+                walls[key][0].append(timed_stream(bs, 1)[1])
+                if last:
+                    torch.cuda.reset_peak_memory_stats()
+                    drains[key].clear()
+                    if key == "wire":
+                        hopper.reset_launches()
+                        probe.decodes.clear()
+                batches[key], wall = timed_stream(bs, N_BATCHES)
+                walls[key][1].append(wall)
+                if last:
+                    peak[key] = torch.cuda.max_memory_allocated()
+                    if key == "wire":
+                        launches = hopper.launch_counts()
+                        decodes = list(probe.decodes)
+        packed, classes = probe.last
+    for bs in ways.values():
+        del bs._finish
+
+    for key, got in batches.items():
+        if len(got) != N_BATCHES or any(len(o) != len(texts) for o in got):
+            raise RuntimeError(f"{key} stream did not yield every batch "
+                               "in full")
+    for outs_w, outs_p in zip(batches["wire"], batches["plain"]):
+        for j, (a, b) in enumerate(zip(outs_w, outs_p)):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise RuntimeError(f"speed {speed}: wire-on and wire-off "
+                                   f"outputs differ at row {j}")
+    worst = check_oracle(np, served.db, served.config, batches["wire"],
+                         speed)
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"kernels not launched by the path at speed "
                            f"{speed}: {missing}")
-    return {
-        "speed": speed, "batches": len(batches),
-        "sentences_per_batch": len(texts), "distinct_texts": len(TEXTS),
-        "oracle_max_abs_diff": worst, "launches": launches,
-        "audio_s_per_batch": audio,
-        "stream_1_batch_s": walls_1, "stream_3_batches_s": walls_n,
-        "stream_audio_s_per_wall_s": sum(audio) / wall_n,
-        "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
-        "max_memory_allocated_bytes": peak, "pitch_rows": lengths,
-    }
+    audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
+             for outs in batches["wire"]]
+    res = {"speed": speed, "batches": N_BATCHES,
+           "sentences_per_batch": len(texts), "distinct_texts": len(TEXTS),
+           "wire_equals_plain": True, "oracle_max_abs_diff": worst,
+           "launches": launches, "audio_s_per_batch": audio,
+           "pitch_rows": lengths}
+    for key in ways:
+        w1, wn = walls[key]
+        wall_1 = sorted(w1)[TIMING_REPEATS // 2]
+        wall_n = sorted(wn)[TIMING_REPEATS // 2]
+        res[key] = {
+            "stream_1_batch_s": w1, "stream_3_batches_s": wn,
+            "stream_audio_s_per_wall_s": sum(audio) / wall_n,
+            "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
+            "steady_audio_s_per_wall_s_each": [
+                sum(audio[1:]) / (b - a) for a, b in zip(w1, wn)],
+            "drain_ms": [d * 1e3 for d in drains[key]],
+            "max_memory_allocated_bytes": peak[key]}
+    words = sum(d[0] for d in decodes)
+    samples = sum(d[1] for d in decodes)
+    res["wire"].update({
+        "decode_calls": len(decodes),
+        "wire_bytes_over_int16_bytes": 4 * words / (2 * samples),
+        "encode_device_ms": device_ms(lambda: wire.encode(packed), 10),
+        "encode_input_samples": int(packed.shape[0]),
+        "sync_lens_ovf_classes_ms": sync_ms(torch, np, classes,
+                                            len(texts)),
+        "sync_int32_values": 2 * len(texts) + int(classes.shape[0]),
+        "decode_host_ms": [d[2] * 1e3 for d in decodes]})
+    return res
 
 
-def run_slice(torch, np, hopper) -> dict:
+def run_slice(torch, np, hopper, root: str) -> dict:
     """The serving path end to end on the card, held to the oracle:
     speed 1.0 (K1-K4), speed 1.5 and a synchronous batch at 0.5 (all
-    five kernels)."""
+    five kernels), with the wire codec on as served and off."""
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
 
     names = [m.KERNEL for m in hopper.MODULES]
-    with tempfile.TemporaryDirectory() as root:
-        db = VoiceDatabase(make_voice(root))
-        bs = BatchSynthesizer(db, config_defaults(),
-                              device=torch.device("cuda"), dims_floor=FLOOR)
-        res = {"1.0": serve(torch, np, hopper, bs, 1.0,
-                            [n for n in names if n != "wsola_frames"])}
-        say("slice", res["1.0"])
-        res["1.5"] = serve(torch, np, hopper, bs, STRETCH_SPEED, names)
-        say("slice_stretch", res["1.5"])
+    db = VoiceDatabase(make_voice(root))
+    dev = torch.device("cuda")
+    served = BatchSynthesizer(db, config_defaults(), device=dev,
+                              dims_floor=FLOOR)
+    plain = BatchSynthesizer(db, config_defaults(), device=dev,
+                             dims_floor=FLOOR, wire=False)
+    if not served.wire or plain.wire:
+        raise RuntimeError("BatchSynthesizer on the card does not serve "
+                           "with the wire codec by default")
+    res = {"1.0": serve(torch, np, hopper, served, plain, 1.0,
+                        [n for n in names if n != "wsola_frames"])}
+    say("slice", res["1.0"])
+    res["1.5"] = serve(torch, np, hopper, served, plain, STRETCH_SPEED,
+                       names)
+    say("slice_stretch", res["1.5"])
 
-        texts = TEXTS * BATCH_MULT
-        bs.synthesize(texts, speed=SYNC_SPEED)    # first-use set-up
+    texts = TEXTS * BATCH_MULT
+    served.synthesize(texts, speed=SYNC_SPEED)    # first-use set-up
+    torch.cuda.synchronize()
+    hopper.reset_launches()
+    t0 = time.perf_counter()
+    outs = served.synthesize(texts, speed=SYNC_SPEED)
+    wall = time.perf_counter() - t0
+    launches = hopper.launch_counts()
+    worst = check_oracle(np, db, served.config, [outs], SYNC_SPEED)
+    missing = [k for k in names if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched at speed "
+                           f"{SYNC_SPEED}: {missing}")
+    audio = sum(o.shape[0] for o in outs) / SAMPLE_RATE
+    res["0.5"] = {"speed": SYNC_SPEED, "sentences": len(texts),
+                  "oracle_max_abs_diff": worst, "launches": launches,
+                  "wall_s": wall, "audio_s": audio,
+                  "audio_s_per_wall_s": audio / wall}
+    say("synthesize_sync", res["0.5"])
+    return res
+
+
+# CLI drives of phase 6: (text, speed argument, flags).
+CLI_CASES = [("olá mundo, tudo bem?", "1.0", []),
+             ("o brasil é bonito", "0.5",
+              ["--executor=torch", "--device=cuda"])]
+
+
+def held_to_oracle(np, db, config, got, text: str, speed: float) -> int:
+    return held_to(np, got, oracle(db, config, text, speed),
+                   f"{text!r} at {speed}")
+
+
+def run_entry_points(torch, np, hopper, root: str) -> dict:
+    """Phase 6: the CLI (in subprocesses as a user types it, then
+    through cli.main here for the launch counts) and CTTSEngine over
+    the golden corpus, every output held to the oracle."""
+    import filecmp
+    import subprocess
+    from collections import defaultdict
+
+    from ctts_tpu_torch import cli
+    from ctts_tpu_torch.config import config_defaults
+    from ctts_tpu_torch.db.reader import VoiceDatabase
+    from ctts_tpu_torch.models.engine import CTTSEngine
+    from ctts_tpu_torch.testing.corpus import CORPUS
+    from ctts_tpu_torch.utils.wav import read_wav
+
+    work = os.path.join(root, "cli")
+    os.makedirs(work)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+
+    def run_cli(args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "ctts_tpu_torch.cli"]
+                           + args, cwd=work, env=env, capture_output=True,
+                           text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"ctts_tpu_torch.cli {args[0]}: rc "
+                               f"{r.returncode}\n{r.stdout}{r.stderr}")
+        return time.perf_counter() - t0
+
+    res = {"build_s": run_cli(["build", os.path.join(root, "dataset"),
+                               "cli.db"])}
+    dbp = os.path.join(work, "cli.db")
+    if not filecmp.cmp(dbp, os.path.join(root, "voice.db"), shallow=False):
+        raise RuntimeError("cli build: voice.db differs from the builder's")
+    db, cfg = VoiceDatabase(dbp), config_defaults()
+    cases = []
+    cwd = os.getcwd()
+    os.chdir(work)    # cli.main reads config.yaml from the working dir
+    try:
+        for i, (text, speed, flags) in enumerate(CLI_CASES):
+            wav = f"sub{i}.wav"
+            wall = run_cli(["synth", "cli.db", text, wav, speed] + flags)
+            got = read_wav(wav)
+            case = {"text": text, "speed": float(speed), "flags": flags,
+                    "subprocess_s": wall, "samples": int(got.shape[0]),
+                    "oracle_max_abs_diff": held_to_oracle(
+                        np, db, cfg, got, text, float(speed))}
+            hopper.reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["ctts", "synth", "cli.db", text,
+                               f"in{i}.wav", speed] + flags)
+            if rc != 0:
+                raise RuntimeError(f"cli.main synth {text!r} failed")
+            case["launches"] = hopper.launch_counts()
+            if not np.array_equal(read_wav(f"in{i}.wav"), got):
+                raise RuntimeError(f"cli.main and the subprocess differ "
+                                   f"on {text!r}")
+            want = [m.KERNEL for m in hopper.MODULES
+                    if m.KERNEL != "wsola_frames" or speed != "1.0"]
+            missing = [k for k in want if case["launches"][k] <= 0]
+            if missing:
+                raise RuntimeError(f"cli synth {text!r}: kernels not "
+                                   f"launched: {missing}")
+            cases.append(case)
+        text = CLI_CASES[0][0]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["ctts", "synth", "cli.db", text, "native.wav",
+                           "--executor=native"])
+        if rc != 0:
+            raise RuntimeError("cli synth --executor=native failed")
+        res["native_oracle_max_abs_diff"] = held_to_oracle(
+            np, db, cfg, read_wav("native.wav"), text, 1.0)
+    finally:
+        os.chdir(cwd)
+    res["cli"] = cases
+
+    groups = defaultdict(list)
+    for _, text, speed in CORPUS:
+        groups[speed].append(text)
+    eng = CTTSEngine(dbp, device=torch.device("cuda"))
+    try:
         torch.cuda.synchronize()
         hopper.reset_launches()
         t0 = time.perf_counter()
-        outs = bs.synthesize(texts, speed=SYNC_SPEED)
+        outs = {sp: eng.synthesize_batch(texts, sp)
+                for sp, texts in groups.items()}
         wall = time.perf_counter() - t0
         launches = hopper.launch_counts()
-        worst = check_oracle(np, db, bs.config, [outs], SYNC_SPEED)
-        missing = [k for k in names if launches[k] <= 0]
-        if missing:
-            raise RuntimeError(f"kernels not launched at speed "
-                               f"{SYNC_SPEED}: {missing}")
-        audio = sum(o.shape[0] for o in outs) / SAMPLE_RATE
-        res["0.5"] = {"speed": SYNC_SPEED, "sentences": len(texts),
-                      "oracle_max_abs_diff": worst, "launches": launches,
-                      "wall_s": wall, "audio_s": audio,
-                      "audio_s_per_wall_s": audio / wall}
-        say("synthesize_sync", res["0.5"])
-        return res
+        worst = max(held_to_oracle(np, db, cfg, o, t, sp)
+                    for sp, texts in groups.items()
+                    for t, o in zip(texts, outs[sp]))
+        if not eng._batcher.wire:
+            raise RuntimeError("CTTSEngine's batch path is not the served "
+                               "one (wire codec off)")
+    finally:
+        eng.close()
+    missing = [m.KERNEL for m in hopper.MODULES if launches[m.KERNEL] <= 0]
+    if missing:
+        raise RuntimeError(f"corpus: kernels not launched: {missing}")
+    audio = sum(o.shape[0] for v in outs.values() for o in v) / SAMPLE_RATE
+    res["corpus"] = {"utterances": sum(len(v) for v in outs.values()),
+                     "held_to_oracle": sum(len(v) for v in outs.values()),
+                     "speeds": {str(k): len(v) for k, v in groups.items()},
+                     "oracle_max_abs_diff": worst, "launches": launches,
+                     "wall_s": wall, "audio_s": audio}
+    say("entry_points", res)
+    return res
 
 
 LIBRARY_NONE = {
@@ -759,9 +1021,12 @@ def main() -> int:
     say("ieee", check_ieee(torch, np))
     kern = check_kernels(torch, np, hopper)
     if "--kernels-only" in sys.argv[1:]:
-        print("chip_smoke.py: --kernels-only, phase 5 skipped", flush=True)
+        print("chip_smoke.py: --kernels-only, phases 5-6 skipped",
+              flush=True)
         return 0
-    sl = run_slice(torch, np, hopper)
+    with tempfile.TemporaryDirectory() as root:
+        sl = run_slice(torch, np, hopper, root)
+        run_entry_points(torch, np, hopper, root)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "ctts_tpu."))

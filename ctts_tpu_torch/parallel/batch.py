@@ -1,19 +1,24 @@
 """Batched serving on one CUDA device: the production path.
 
-Counterpart of ctts_tpu/parallel/batch.py without the device mesh and
-the wire codec. Texts are lowered on the host (natively through
-libctts.so, or by the Python plan pipeline), grouped into buckets of
-identical PlanDims, stacked, and run through SynthesisCore as one
-batch per bucket. Each batch's valid prefixes are packed into one flat
-int16 buffer on the device, so the host copy is sum(out_len) samples.
+Counterpart of ctts_tpu/parallel/batch.py without the device mesh.
+Texts are lowered on the host (natively through libctts.so, or by the
+Python plan pipeline), grouped into buckets of identical PlanDims,
+stacked, and run through SynthesisCore as one batch per bucket. Each
+batch's valid prefixes are packed into one flat int16 buffer on the
+device, so the host copy is sum(out_len) samples. With the wire codec
+(ops/wire.py; on by default on a CUDA device, as the JAX package turns
+it on on every accelerator) the packed buffer is encoded on the device
+and the host copies the valid word prefix and decodes it in one C pass
+on the drain thread; the samples are the same bit for bit.
 
 Every speed is served (WSOLA for speed != 1.0, with OMAX-wide rows).
-Arguments the port does not serve yet (a mesh, the wire codec) raise
-NotImplementedError; they never run something else.
+A device mesh is not ported yet and raises NotImplementedError; it
+never runs something else.
 """
 
 from __future__ import annotations
 
+import os
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
@@ -23,6 +28,7 @@ import torch
 
 from ctts_tpu_torch.config import CTTSConfig
 from ctts_tpu_torch.db.reader import VoiceDatabase
+from ctts_tpu_torch.ops import wire as wire_codec
 from ctts_tpu_torch.plan.compiler import compile_plan
 from ctts_tpu_torch.plan.split import split_plan
 from ctts_tpu_torch.synth.device import (
@@ -73,22 +79,27 @@ class BatchSynthesizer:
         mesh=None,
         target_rms: float = 3000.0,
         dims_floor: Optional[dict] = None,
-        wire: bool = False,
+        wire: Optional[bool] = None,
         native_plans: bool = True,
         device: Optional[torch.device] = None,
     ):
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh is not ported to ctts_tpu_torch")
-        if wire:
-            raise NotImplementedError(
-                "the wire codec is not ported to ctts_tpu_torch")
         self.db = db
         self.config = config
         self.rules = rules
         self.dims_floor = dims_floor
         self.voice = DeviceVoice(db, target_rms, device)
         self.device = self.voice.device
+        # The wire codec is on where the JAX package turns it on (every
+        # accelerator: ctts_tpu/parallel/batch.py:246-252), here a CUDA
+        # device; off on the CPU. CTTS_WIRE=0/1 overrides.
+        if wire is None:
+            env = os.environ.get("CTTS_WIRE", "")
+            wire = (env == "1" if env in ("0", "1")
+                    else self.device.type == "cuda")
+        self.wire = bool(wire)
         self.core = SynthesisCore(self.voice)
         self._nl = None
         if native_plans:
@@ -250,7 +261,14 @@ class BatchSynthesizer:
     def _enqueue_bucket(self, dims: PlanDims, prep):
         n, stacked, shared = prep
         out, out_lens, ovf = self.core(dims, stacked, shared)
-        return n, pack_rows(out, out_lens), out_lens, ovf
+        packed = pack_rows(out, out_lens)
+        if not self.wire:
+            return n, packed, None, out_lens, ovf
+        pad = -packed.shape[0] % wire_codec.WIRE_BLOCK
+        if pad:
+            packed = torch.cat([packed, packed.new_zeros(pad)])
+        words, classes = wire_codec.encode(packed)
+        return n, words, classes, out_lens, ovf
 
     def _trim(self, enqueued):
         n_rows, per_bucket = enqueued
@@ -258,33 +276,43 @@ class BatchSynthesizer:
                         for idxs, handle in per_bucket]
 
     def _trim_bucket(self, handle):
-        """Sync the per-row lengths (one small copy), report overflow,
-        then start copying the valid prefix of the packed buffer to
-        pinned host memory on the side stream, so that the copy runs
-        beside the next batch's compute."""
-        n, packed, out_lens, ovf = handle
-        small = torch.stack([out_lens, ovf]).cpu().numpy()
-        warn_overflow(int(small[1].sum()))
-        ends = np.cumsum(small[0][:n].astype(np.int64))
+        """Sync the per-row lengths, the overflow counts and, with the
+        wire codec, the block classes in one small copy; report
+        overflow; then start copying the valid prefix of the packed
+        buffer (or of the wire words) to pinned host memory on the side
+        stream, so that the copy runs beside the next batch's compute."""
+        n, payload, classes, out_lens, ovf = handle
+        small = [out_lens, ovf] + ([] if classes is None else [classes])
+        small = torch.cat(small).cpu().numpy()
+        B = out_lens.shape[0]
+        warn_overflow(int(small[B:2 * B].sum()))
+        ends = np.cumsum(small[:n].astype(np.int64))
         total = int(ends[-1])
+        if classes is not None:
+            classes = small[2 * B:]
+            count = wire_codec.wire_valid_words(classes, total)
+        else:
+            count = total
         if self._copy_stream is None:
-            return n, packed[:total].numpy().copy(), None, ends
-        host = torch.empty(total, dtype=torch.int16, pin_memory=True)
+            return n, payload[:count].numpy().copy(), classes, None, ends
+        host = torch.empty(count, dtype=payload.dtype, pin_memory=True)
         self._copy_stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(self._copy_stream):
-            host.copy_(packed[:total], non_blocking=True)
+            host.copy_(payload[:count], non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-        packed.record_stream(self._copy_stream)
-        return n, host, done, ends
+        payload.record_stream(self._copy_stream)
+        return n, host, classes, done, ends
 
     def _drain(self, trimmed):
         n_rows, per_bucket = trimmed
         results: list = [None] * n_rows
-        for idxs, (n, host, done, ends) in per_bucket:
+        for idxs, (n, host, classes, done, ends) in per_bucket:
             if done is not None:
                 done.synchronize()
                 host = host.numpy()
+            if classes is not None:
+                host = wire_codec.decode_host(host, classes, int(ends[-1]))
             for slot in range(n):
                 s = int(ends[slot - 1]) if slot else 0
                 results[idxs[slot]] = host[s:int(ends[slot])].copy()

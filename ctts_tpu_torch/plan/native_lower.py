@@ -15,18 +15,16 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import time
 from typing import Sequence
 
 import numpy as np
 
 from ctts_tpu_torch.config import CTTSConfig
+from ctts_tpu_torch.runtime.native import make_and_open
 from ctts_tpu_torch.synth.plan_arrays import PlanDims
 
-_RUNTIME = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "runtime")
-_SO = os.path.join(_RUNTIME, "libctts.so")
+_SO = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "runtime", "libctts.so")
 
 
 class _CConfig(ctypes.Structure):
@@ -100,27 +98,6 @@ def _shape_of(key: str, dims: PlanDims) -> tuple:
 
 
 _lib = None
-_BUILD_ATTEMPTS = 3
-
-
-def _make_and_open() -> ctypes.CDLL:
-    """make (dependency-checked: a no-op when current), then dlopen.
-    Another process may be writing libctts.so at the same moment (a
-    second test worker runs the same make), which shows as a failed
-    make or an unloadable file; that is retried a few times, then
-    raised with make's output."""
-    for attempt in range(_BUILD_ATTEMPTS):
-        r = subprocess.run(["make", "-C", _RUNTIME, "libctts.so"],
-                           capture_output=True, text=True)
-        err = f"make libctts.so: rc {r.returncode}\n{r.stdout}{r.stderr}"
-        if r.returncode == 0:
-            try:
-                return ctypes.CDLL(_SO)
-            except OSError as e:
-                err += f"\nloading {_SO}: {e}"
-        if attempt == _BUILD_ATTEMPTS - 1:
-            raise RuntimeError(err)
-        time.sleep(2.0)
 
 
 def _load():
@@ -128,7 +105,7 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    lib = _make_and_open()
+    lib = make_and_open(_SO)
     lib.ctl_open.restype = ctypes.c_void_p
     lib.ctl_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(_CConfig)]
     lib.ctl_close.restype = None

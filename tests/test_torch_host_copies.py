@@ -40,7 +40,8 @@ COPIES = """constants.py config.py utils/textutil.py utils/wav.py
 db/format.py db/reader.py db/builder.py db/dataset.py
 text/numbers.py text/rules.py text/normalize.py text/phonology.py
 text/prosody.py plan/select.py plan/compiler.py plan/split.py
-synth/dsp_np.py synth/oracle.py""".split()
+synth/dsp_np.py synth/oracle.py utils/errors.py text/duration_rules.py
+testing/corpus.py""".split()
 RUNTIME = ["Makefile", "csrc/ctts_native.cpp", "csrc/ctts_capi.cpp",
            "csrc/ctn_api.h", "include/ctts.h"]
 # tests/test_device_executor.py::CASES texts.

@@ -9,8 +9,8 @@ oracle, on the CPU.
     test_stream_matches_synthesize, at speed 1.0 and 1.5, equals its
     own synthesize exactly and ctts_tpu's BatchSynthesizer.synthesize
     within 2 LSB.
-(c) what the port does not serve yet (a mesh, the wire codec) raises
-    NotImplementedError; every speed is served.
+(c) what the port does not serve yet (a mesh) raises
+    NotImplementedError; the wire codec and every speed are served.
 """
 
 import jax
@@ -108,8 +108,7 @@ def test_unserved_arguments_raise(db):
     cfg = config_defaults()
     with pytest.raises(NotImplementedError):
         BatchSynthesizer(db, cfg, device=CPU, mesh=object())
-    with pytest.raises(NotImplementedError):
-        BatchSynthesizer(db, cfg, device=CPU, wire=True)
+    assert BatchSynthesizer(db, cfg, device=CPU, wire=True).wire
     bs = BatchSynthesizer(db, cfg, device=CPU)
     plan = compile_plan(db, "a rosa azul", cfg, None, 1.2)
     want = execute_plan_oracle(plan, db)
