@@ -51,7 +51,22 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      with their kernel launch counts, and --executor=native held to the
      oracle; then CTTSEngine.synthesize_batch over the 120-utterance
      corpus (ctts_tpu_torch/testing/corpus.py), one call per speed, every
-     utterance held to the oracle, with its launch counts and wall time.
+     utterance held to the oracle, with its launch counts and wall time;
+  7. multi-device: the kernel library's CUDA runtime follows the device
+     that torch.cuda.device makes current, on every card, and with two
+     or more cards phase 4's kernels on cuda:1 with cuda:0 current
+     against their plain versions (with one card a line says this was
+     not run); stream() over phase 5's batches at 1.0 and 1.5 through a
+     mesh of every visible card (make_mesh()) and through [cuda:0,
+     cuda:0] (two shards on one card), in turns with the unsplit served
+     BatchSynthesizer, each output equal to phase 5's served stream bit
+     for bit, with launch counts, steady audio-s/s, each shard's host
+     enqueue ms and peak memory per device; dryrun_multigpu on both
+     meshes; two processes over gloo, both on cuda:0, through
+     synthesize_across_hosts over one batch, process 0's gather equal to
+     the unsplit served output, with each all_gather's bytes and time;
+     the voice bundle saved, loaded on the card and used for one
+     sentence, equal to DeviceVoice's, with both load times.
 With --kernels-only the script stops after phase 4.
 The script imports nothing of the JAX package: the oracle, the voice
 builder and the plan compiler are the port's own copies. The last line
@@ -382,6 +397,89 @@ def wsola_ops(searched, nrun):
                  + int(nrun.sum()) * 3 * FRAME)
 
 
+def kernel_tensors(torch, ins, dev) -> dict:
+    """Phase 4's inputs on `dev`, and the WSOLA cases' energy tables and
+    run counts."""
+    from ctts_tpu_torch.ops import wsola as tw
+
+    def on(*xs):
+        return [torch.as_tensor(x, device=dev) for x in xs]
+
+    t = {}
+    t["seg"], t["ana"] = on(*ins["pitch"])
+    t["ana220"] = torch.full_like(t["ana"], 220)   # every row at L = 220
+    (t["contrib"], t["fo"], t["base_off"], t["cf_in"], t["n_eff"],
+     t["a_c"]) = on(*ins["compose"])
+    t["bufs"], t["starts"], t["dst"], t["seg_len"] = on(*ins["compact"])
+    _, t["offsets"], t["live"] = on(*ins["assemble"])
+    t["adv_offsets"], t["adv_live"] = on(*ins["assemble_adversarial"])
+    for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
+        sent, counts = on(*(x[rows] for x in ins["wsola"]))
+        t[tag] = (sent, tw.energy_table(sent), counts,
+                  tw.run_counts(counts, SMAX, out_size, hop))
+    return t
+
+
+def kernel_cases(hopper, t) -> dict:
+    """Phase 4's calls on the tensors `t`: name -> (kernel call, plain
+    call, kernel reps, plain reps)."""
+    from ctts_tpu_torch.ops import wsola as tw
+
+    TOT, OUTW = R * WREG, MARGIN + SMAX
+    # An output width that is not a multiple of 4: the scalar path.
+    OUTW_ODD = OUTW - 2
+    pitch, compose, compact, assemble = (hopper.pitch, hopper.compose,
+                                         hopper.compact, hopper.assemble)
+    cp = (t["contrib"], t["fo"], t["base_off"], t["cf_in"], t["n_eff"],
+          t["a_c"], TOT, True)
+    cm = (t["bufs"], t["starts"], t["dst"], t["seg_len"], WREG)
+    cases = {
+        "pitch_corr": (lambda: pitch.pitch_corr(t["seg"], t["ana"]),
+                       lambda: pitch.pitch_corr_plain(t["seg"], t["ana"]),
+                       20, 5),
+        "pitch_corr L=220": (
+            lambda: pitch.pitch_corr(t["seg"], t["ana220"]),
+            lambda: pitch.pitch_corr_plain(t["seg"], t["ana220"]), 20, 5),
+        "compose": (lambda: compose.compose(*cp),
+                    lambda: compose.compose_plain(*cp), 10, 3),
+        "compact": (lambda: compact.compact(*cm),
+                    lambda: compact.compact_plain(*cm), 20, 3),
+    }
+    for tag, offs, live, outw in (
+            ("assemble", "offsets", "live", OUTW),
+            ("assemble adversarial", "adv_offsets", "adv_live", OUTW),
+            ("assemble scalar path", "offsets", "live", OUTW_ODD)):
+        args = (t["bufs"], t[offs], t[live], WREG, outw)
+        cases[tag] = (lambda args=args: assemble.assemble(*args),
+                      lambda args=args: assemble.assemble_plain(*args),
+                      20, 3)
+
+    def with_choices(fn, args):
+        def call():
+            ch = {}
+            acc, norm = fn(*args, choices=ch)
+            return acc, norm, ch["pos"]
+        return call
+
+    for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
+        args = t[tag] + (hop, out_size)
+        cases[f"wsola_frames {tag}"] = (
+            with_choices(hopper.wsola.wsola_frames, args),
+            with_choices(tw.wsola_frames_plain, args), 10, 3)
+    return cases
+
+
+def compare(torch, kern, plain) -> tuple:
+    """(equal bits, max abs error) of a kernel call and its plain one."""
+    got, want = kern(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize(got[0].device)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return equal, err, got
+
+
 def check_kernels(torch, np, hopper) -> dict:
     """Kernel vs plain version on the card: equal bits, both times, the
     bound and the library call's time."""
@@ -389,18 +487,9 @@ def check_kernels(torch, np, hopper) -> dict:
 
     dev = torch.device("cuda")
     ins = kernel_inputs(np)
-
-    def cuda(*xs):
-        return [torch.as_tensor(x, device=dev) for x in xs]
-
-    seg, ana = cuda(*ins["pitch"])
-    ana220 = torch.full_like(ana, 220)      # every row at the full window
-    contrib, fo, base_off, cf_in, n_eff, a_c = cuda(*ins["compose"])
-    bufs, starts, dst, seg_len = cuda(*ins["compact"])
-    _, offsets, live = cuda(*ins["assemble"])
-    adv_offsets, adv_live = cuda(*ins["assemble_adversarial"])
+    t = kernel_tensors(torch, ins, dev)
+    seg, ana, bufs = t["seg"], t["ana"], t["bufs"]
     TOT, OUTW = R * WREG, MARGIN + SMAX
-    # An output width that is not a multiple of 4: the scalar path.
     OUTW_ODD = OUTW - 2
 
     # Work each function needs on these inputs (each input read once,
@@ -425,7 +514,7 @@ def check_kernels(torch, np, hopper) -> dict:
     fill = torch.empty(B, TOT, dtype=torch.float32, device=dev)
     compose_work["zero_fill_ms"] = device_ms(fill.zero_, 20)
     del fill
-    compact_work = bound(2 * bufs.nbytes + 3 * starts.nbytes, 0.0)
+    compact_work = bound(2 * bufs.nbytes + 3 * t["starts"].nbytes, 0.0)
 
     def assemble_bound(offs, lv, outw):
         """The live samples that land in [0, outw), read once and added
@@ -443,7 +532,6 @@ def check_kernels(torch, np, hopper) -> dict:
     del fill
 
     # Library yardsticks (timed here, never called by the port).
-    pitch_library = pitch_conv(torch, seg, ana)
     # compact: one gather with the source index of every position.
     src = np.tile(np.arange(TOT, dtype=np.int64), (B, 1))
     st, ds, sl = ins["compact"][1:]
@@ -467,56 +555,23 @@ def check_kernels(torch, np, hopper) -> dict:
     asm_zero = torch.zeros(B * (OUTW + TOT), dtype=torch.float32,
                            device=dev)
     bufs_flat = bufs.reshape(-1)
-
-    cases = {
-        "pitch_corr": (
-            lambda: hopper.pitch.pitch_corr(seg, ana),
-            lambda: hopper.pitch.pitch_corr_plain(seg, ana), 20, 5,
-            pitch_work, pitch_library),
-        "pitch_corr L=220": (
-            lambda: hopper.pitch.pitch_corr(seg, ana220),
-            lambda: hopper.pitch.pitch_corr_plain(seg, ana220), 20, 5,
-            pitch220_work, pitch_conv(torch, seg, ana220)),
-        "compose": (
-            lambda: hopper.compose.compose(contrib, fo, base_off, cf_in,
-                                           n_eff, a_c, TOT, True),
-            lambda: hopper.compose.compose_plain(contrib, fo, base_off, cf_in,
-                                                 n_eff, a_c, TOT, True),
-            10, 3, compose_work, None),
-        "compact": (
-            lambda: hopper.compact.compact(bufs, starts, dst, seg_len, WREG),
-            lambda: hopper.compact.compact_plain(bufs, starts, dst, seg_len,
-                                                 WREG), 20, 3,
-            compact_work, lambda: (bufs.gather(1, compact_idx),)),
-        "assemble": (
-            lambda: hopper.assemble.assemble(bufs, offsets, live, WREG, OUTW),
-            lambda: hopper.assemble.assemble_plain(bufs, offsets, live, WREG,
-                                                   OUTW), 20, 3,
-            assemble_work,
-            lambda: (torch.index_add(asm_zero, 0, asm_idx, bufs_flat)
-                     [:B * OUTW].reshape(B, OUTW),)),
-        "assemble adversarial": (
-            lambda: hopper.assemble.assemble(bufs, adv_offsets, adv_live,
-                                             WREG, OUTW),
-            lambda: hopper.assemble.assemble_plain(bufs, adv_offsets,
-                                                   adv_live, WREG, OUTW),
-            20, 3, adv_work, None),
-        "assemble scalar path": (
-            lambda: hopper.assemble.assemble(bufs, offsets, live, WREG,
-                                             OUTW_ODD),
-            lambda: hopper.assemble.assemble_plain(bufs, offsets, live, WREG,
-                                                   OUTW_ODD), 20, 3,
-            odd_work, None),
-    }
+    works = {"pitch_corr": pitch_work, "pitch_corr L=220": pitch220_work,
+             "compose": compose_work, "compact": compact_work,
+             "assemble": assemble_work, "assemble adversarial": adv_work,
+             "assemble scalar path": odd_work}
+    libraries = {
+        "pitch_corr": pitch_conv(torch, seg, ana),
+        "pitch_corr L=220": pitch_conv(torch, seg, t["ana220"]),
+        "compact": lambda: (bufs.gather(1, compact_idx),),
+        "assemble": lambda: (torch.index_add(asm_zero, 0, asm_idx, bufs_flat)
+                             [:B * OUTW].reshape(B, OUTW),)}
     for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
-        sent, counts = cuda(*(x[rows] for x in ins["wsola"]))
-        sq = tw.energy_table(sent)
-        nrun = tw.run_counts(counts, SMAX, out_size, hop)
+        sent, sq, counts, nrun = t[tag]
         nr = nrun.cpu().numpy()
         cnt = ins["wsola"][1][rows]
-        args = (sent, sq, counts, nrun, hop, out_size)
         searched = {}
-        tw.wsola_frames_plain(*args, searched=searched)
+        tw.wsola_frames_plain(sent, sq, counts, nrun, hop, out_size,
+                              searched=searched)
         dec = (sent, sq, counts, nrun, tw.max_steps_for(SMAX, out_size, hop))
         work = bound(
             2 * 4 * np.minimum(cnt, SMAX).astype(np.int64).sum()
@@ -531,30 +586,17 @@ def check_kernels(torch, np, hopper) -> dict:
                         lambda dec=dec: hopper.wsola.decide(*dec), 10),
                     floor_ms=time_ms(
                         lambda dec=dec: hopper.wsola.chain_floor(*dec), 10))
-
-        def with_choices(fn, args):
-            def call():
-                ch = {}
-                acc, norm = fn(*args, choices=ch)
-                return acc, norm, ch["pos"]
-            return call
-
-        cases[f"wsola_frames {tag}"] = (
-            with_choices(hopper.wsola.wsola_frames, args),
-            with_choices(tw.wsola_frames_plain, args), 10, 3, work, None)
+        works[f"wsola_frames {tag}"] = work
 
     results = {}
-    for name, (kern, plain, reps, plain_reps, work, library) in cases.items():
-        got, want = kern(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        torch.cuda.synchronize()
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    for name, (kern, plain, reps, plain_reps) in kernel_cases(
+            hopper, t).items():
+        equal, err, got = compare(torch, kern, plain)
+        library = libraries.get(name)
         res = {"equal": equal, "max_abs_err": err,
                "ms": device_ms(kern, reps), "host_ms": time_ms(kern, reps),
                "plain_ms": time_ms(plain, plain_reps),
-               "shapes": [list(g.shape) for g in got], **work,
+               "shapes": [list(g.shape) for g in got], **works[name],
                "library_ms": None}
         if library is not None:
             res["library_ms"] = device_ms(library, reps)
@@ -571,18 +613,9 @@ def check_kernels(torch, np, hopper) -> dict:
 
 def make_voice(root: str) -> str:
     """The deterministic generated voice bank, built into voice.db."""
-    from ctts_tpu_torch.db.builder import build_database
-    from ctts_tpu_torch.db.dataset import generate_dataset
+    from ctts_tpu_torch.testing.dryrun import generated_voice_db
 
-    ds = os.path.join(root, "dataset")
-    generate_dataset(ds)
-    dbp = os.path.join(root, "voice.db")
-    build_database(os.path.join(ds, "letters", "wavs"),
-                   os.path.join(ds, "letters", "letters.txt"),
-                   os.path.join(ds, "syllables", "wavs"),
-                   os.path.join(ds, "syllables", "sillabes.txt"),
-                   dbp, verbose=False)
-    return dbp
+    return generated_voice_db(root)
 
 
 def oracle(db, config, text: str, speed: float):
@@ -807,13 +840,15 @@ def serve(torch, np, hopper, served, plain, speed: float,
                                             len(texts)),
         "sync_int32_values": 2 * len(texts) + int(classes.shape[0]),
         "decode_host_ms": [d[2] * 1e3 for d in decodes]})
-    return res
+    return res, batches["wire"]
 
 
-def run_slice(torch, np, hopper, root: str) -> dict:
+def run_slice(torch, np, hopper, root: str):
     """The serving path end to end on the card, held to the oracle:
     speed 1.0 (K1-K4), speed 1.5 and a synchronous batch at 0.5 (all
-    five kernels), with the wire codec on as served and off."""
+    five kernels), with the wire codec on as served and off. Returns the
+    results, the served BatchSynthesizer and its stream outputs per
+    speed (phase 7 holds the split to them)."""
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
@@ -828,11 +863,13 @@ def run_slice(torch, np, hopper, root: str) -> dict:
     if not served.wire or plain.wire:
         raise RuntimeError("BatchSynthesizer on the card does not serve "
                            "with the wire codec by default")
-    res = {"1.0": serve(torch, np, hopper, served, plain, 1.0,
-                        [n for n in names if n != "wsola_frames"])}
+    res, outputs = {}, {}
+    res["1.0"], outputs[1.0] = serve(
+        torch, np, hopper, served, plain, 1.0,
+        [n for n in names if n != "wsola_frames"])
     say("slice", res["1.0"])
-    res["1.5"] = serve(torch, np, hopper, served, plain, STRETCH_SPEED,
-                       names)
+    res["1.5"], outputs[STRETCH_SPEED] = serve(
+        torch, np, hopper, served, plain, STRETCH_SPEED, names)
     say("slice_stretch", res["1.5"])
 
     texts = TEXTS * BATCH_MULT
@@ -854,7 +891,7 @@ def run_slice(torch, np, hopper, root: str) -> dict:
                   "wall_s": wall, "audio_s": audio,
                   "audio_s_per_wall_s": audio / wall}
     say("synthesize_sync", res["0.5"])
-    return res
+    return res, served, outputs
 
 
 # CLI drives of phase 6: (text, speed argument, flags).
@@ -978,6 +1015,325 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     return res
 
 
+# Phase 7. The split streams' interleaved repeats (as serve(), fewer).
+SPLIT_REPEATS = 3
+
+# One rank of the two-process exchange, both on cuda:0:
+#   python -c GLOO_WORKER coordinator rank voice.db out.npz texts floor
+# It serves its block of the texts through synthesize_across_hosts with
+# every all_gather timed; rank 0 saves the gathered outputs.
+GLOO_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+coordinator, rank, dbp, outp = (sys.argv[1], int(sys.argv[2]), sys.argv[3],
+                                sys.argv[4])
+texts, floor = json.loads(sys.argv[5]), json.loads(sys.argv[6])
+from ctts_tpu_torch.config import config_defaults
+from ctts_tpu_torch.db.reader import VoiceDatabase
+from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+from ctts_tpu_torch.parallel.multihost import (
+    initialize, synthesize_across_hosts)
+
+initialize(coordinator, 2, rank, timeout_s=240)
+bs = BatchSynthesizer(VoiceDatabase(dbp), config_defaults(),
+                      device=torch.device("cuda", 0), dims_floor=floor)
+synthesize_across_hosts(bs, texts, return_local=True)    # first-use set-up
+gathers = []
+all_gather = dist.all_gather
+def timed(parts, t, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = all_gather(parts, t, *args, **kwargs)
+    gathers.append({"dtype": str(t.dtype),
+                    "bytes": t.numel() * t.element_size(),
+                    "s": time.perf_counter() - t0})
+    return out
+dist.all_gather = timed
+dist.barrier()
+t0 = time.perf_counter()
+outs = synthesize_across_hosts(bs, texts)
+call_s = time.perf_counter() - t0
+dist.barrier()
+t0 = time.perf_counter()
+idx, local = synthesize_across_hosts(bs, texts, return_local=True)
+local_s = time.perf_counter() - t0
+for i, o in zip(idx, local):
+    assert np.array_equal(o, outs[i]), i
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                or m == "ctts_tpu" or m.startswith("ctts_tpu."))
+assert not loaded, loaded
+if rank == 0:
+    np.savez(outp, *outs)
+print("RESULT " + json.dumps({"rank": rank, "rows": len(idx),
+                              "call_s": call_s, "local_call_s": local_s,
+                              "gathers": gathers}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def check_cross_device(torch, np, hopper) -> dict:
+    """The kernel library's runtime takes the device that
+    torch.cuda.device makes current, on every card; with two or more
+    cards, phase 4's kernels on cuda:1 tensors with cuda:0 current equal
+    their plain versions (comparisons: nothing is counted)."""
+    n = torch.cuda.device_count()
+    current = {}
+    for d in range(n):
+        with torch.cuda.device(d):
+            current[d] = hopper.build.current_device()
+    if any(current[d] != d for d in current):
+        raise RuntimeError(f"the kernel library's current device does not "
+                           f"follow torch.cuda.device: {current}")
+    res = {"devices": n, "library_current_device": current}
+    if n < 2:
+        print("multi-device: phase 4's kernels on cuda:1 with cuda:0 "
+              "current: not run, one CUDA device is visible", flush=True)
+        return dict(res, cross_device_run=False)
+    counts = hopper.launch_counts()
+    t = kernel_tensors(torch, kernel_inputs(np), torch.device("cuda", 1))
+    errs = {}
+    with torch.cuda.device(0):
+        for name, (kern, plain, _, _) in kernel_cases(hopper, t).items():
+            equal, errs[name], _ = compare(torch, kern, plain)
+            if not equal:
+                raise RuntimeError(f"{name} on cuda:1 with cuda:0 current "
+                                   f"differs from its plain version")
+    for m in hopper.MODULES:
+        m.launches = counts[m.KERNEL]
+    del t
+    torch.cuda.empty_cache()
+    return dict(res, cross_device_run=True, max_abs_err=errs)
+
+
+def split_streams(torch, np, hopper, ways, want, speed: float,
+                  kernels: list) -> dict:
+    """stream() over N_BATCHES batches at one speed through each
+    BatchSynthesizer of `ways` (the unsplit served one and the meshes),
+    in turns, timed as serve() times them; every output equals `want`
+    (phase 5's served stream) bit for bit. Launch counts, each shard's
+    host enqueue ms (the core's launches, pack_rows, encode) and peak
+    memory per device are those of each way's last 3-batch stream,
+    where every kernel in `kernels` must have launched."""
+    texts = TEXTS * BATCH_MULT
+    enqueue = {k: [] for k in ways}
+
+    def timed_enqueue(bs, key):
+        run = bs._enqueue_shard
+
+        def call(*args):
+            t0 = time.perf_counter()
+            out = run(*args)
+            enqueue[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def timed_stream(bs, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = list(bs.stream((texts for _ in range(n)), speed=speed))
+        return got, time.perf_counter() - t0
+
+    for key, bs in ways.items():
+        bs._enqueue_shard = timed_enqueue(bs, key)
+    try:
+        for bs in ways.values():
+            timed_stream(bs, 1)                  # first-use set-up
+        walls = {k: ([], []) for k in ways}
+        got, launches, peak = {}, {}, {}
+        for rep in range(SPLIT_REPEATS):
+            last = rep == SPLIT_REPEATS - 1
+            for key in (ways if rep % 2 == 0 else list(ways)[::-1]):
+                bs = ways[key]
+                devs = sorted({s.device for s in bs.shards}, key=str)
+                walls[key][0].append(timed_stream(bs, 1)[1])
+                if last:
+                    for d in devs:
+                        torch.cuda.reset_peak_memory_stats(d)
+                    enqueue[key].clear()
+                    hopper.reset_launches()
+                got[key], wall = timed_stream(bs, N_BATCHES)
+                walls[key][1].append(wall)
+                if last:
+                    launches[key] = hopper.launch_counts()
+                    peak[key] = {str(d): torch.cuda.max_memory_allocated(d)
+                                 for d in devs}
+    finally:
+        for bs in ways.values():
+            del bs._enqueue_shard
+
+    res = {"speed": speed, "batches": N_BATCHES,
+           "sentences_per_batch": len(texts)}
+    for key, bs in ways.items():
+        for b, (outs, ref) in enumerate(zip(got[key], want)):
+            if len(outs) != len(ref) or any(
+                    o.dtype != r.dtype or not np.array_equal(o, r)
+                    for o, r in zip(outs, ref)):
+                raise RuntimeError(f"{key} at {speed}: batch {b} differs "
+                                   "from the unsplit served stream")
+        missing = [k for k in kernels if launches[key][k] <= 0]
+        if missing:
+            raise RuntimeError(f"{key} at {speed}: kernels not launched: "
+                               f"{missing}")
+        audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
+                 for outs in got[key]]
+        w1, wn = walls[key]
+        wall_1 = sorted(w1)[SPLIT_REPEATS // 2]
+        wall_n = sorted(wn)[SPLIT_REPEATS // 2]
+        size = len(bs.shards)
+        per_shard = [[x * 1e3 for x in enqueue[key][i::size]]
+                     for i in range(size)]
+        res[key] = {
+            "shards": [str(s.device) for s in bs.shards],
+            "equal_to_unsplit_served": True,
+            "launches": launches[key],
+            "stream_1_batch_s": w1, "stream_3_batches_s": wn,
+            "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
+            "steady_audio_s_per_wall_s_each": [
+                sum(audio[1:]) / (b - a) for a, b in zip(w1, wn)],
+            "enqueue_ms_per_shard": per_shard,
+            "enqueue_ms_median_per_shard": [
+                float(np.median(x)) for x in per_shard],
+            "max_memory_allocated_bytes": peak[key]}
+    return res
+
+
+def run_exchange(np, root: str, dbp: str, want: list) -> dict:
+    """Two processes over gloo on the card serve one bench batch through
+    synthesize_across_hosts; process 0's gather must equal `want` (the
+    unsplit served output of that batch) bit for bit."""
+    import socket
+    import subprocess
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    texts = TEXTS * BATCH_MULT
+    outp = os.path.join(root, "exchange.npz")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_WORKER, f"127.0.0.1:{port}", str(rank),
+         dbp, outp, json.dumps(texts), json.dumps(FLOOR)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"exchange worker: rc {p.returncode}\n"
+                               f"{log[-4000:]}")
+    ranks = [json.loads(line[len("RESULT "):]) for log in logs
+             for line in log.splitlines() if line.startswith("RESULT ")]
+    with np.load(outp) as z:
+        got = [z[f"arr_{i}"] for i in range(len(z.files))]
+    if len(got) != len(want) or any(
+            a.dtype != b.dtype or not np.array_equal(a, b)
+            for a, b in zip(got, want)):
+        raise RuntimeError("gloo exchange: process 0's gather differs from "
+                           "the unsplit served output")
+    return {"processes": 2, "device": "cuda:0 (both)", "texts": len(texts),
+            "equal_to_unsplit_served": True, "wall_s_both_processes": wall,
+            "ranks": ranks}
+
+
+def run_bundle(torch, np, root: str, db) -> dict:
+    """Save the voice bundle, load it on the card, and synthesize one
+    sentence with it and with DeviceVoice: equal tensors and samples;
+    the bundle's load time beside DeviceVoice's pad-and-gain
+    construction (each three times, interleaved, synchronized)."""
+    from ctts_tpu_torch.config import config_defaults
+    from ctts_tpu_torch.db.bundle import VoiceBundle, save_voice_bundle
+    from ctts_tpu_torch.plan.compiler import compile_plan
+    from ctts_tpu_torch.synth.device import DeviceVoice, execute_plan_torch
+
+    path = os.path.join(root, "voice_bundle.npz")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    save_voice_bundle(db, path)
+    save_s = time.perf_counter() - t0
+
+    def timed(make):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        voice = make()
+        torch.cuda.synchronize()
+        return voice, time.perf_counter() - t0
+
+    load_s, voice_s = [], []
+    for _ in range(3):
+        bundle, s = timed(lambda: VoiceBundle(path, dev))
+        load_s.append(s)
+        voice, s = timed(lambda: DeviceVoice(db, device=dev))
+        voice_s.append(s)
+    for name in ("bank", "lengths", "gains"):
+        if not torch.equal(getattr(bundle, name), getattr(voice, name)):
+            raise RuntimeError(f"bundle: {name} differs from DeviceVoice's")
+    text = "olá mundo, tudo bem?"
+    plan = compile_plan(db, text, config_defaults(), None, 1.0)
+    got = execute_plan_torch(plan, db, bundle)
+    want = execute_plan_torch(plan, db, voice)
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise RuntimeError("bundle: the sentence differs from DeviceVoice's")
+    return {"text": text, "samples": int(got.shape[0]),
+            "equal_to_device_voice": True, "bytes": os.path.getsize(path),
+            "units": int(bundle.bank.shape[0]), "save_s": save_s,
+            "bundle_load_s": load_s, "device_voice_s": voice_s}
+
+
+def run_multi_device(torch, np, hopper, root: str, served,
+                     outputs: dict) -> dict:
+    """Phase 7: device routing across cards, the row split's streams at
+    1.0 and 1.5 through make_mesh() and [cuda:0, cuda:0] beside the
+    unsplit served stream, dryrun_multigpu on both meshes, the
+    two-process gloo exchange and the voice bundle."""
+    from ctts_tpu_torch.parallel import BatchSynthesizer, make_mesh
+    from ctts_tpu_torch.testing.dryrun import dryrun_multigpu
+
+    res = {"cross_device": check_cross_device(torch, np, hopper)}
+    say("multi_device_kernels", res["cross_device"])
+    dbp = os.path.join(root, "voice.db")
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"mesh_all_cards": make_mesh(),
+              "mesh_cuda0_x2": make_mesh([cuda0, cuda0])}
+    ways = {"unsplit": served}
+    for key, mesh in meshes.items():
+        ways[key] = BatchSynthesizer(served.db, served.config, mesh=mesh,
+                                     dims_floor=FLOOR)
+        if not ways[key].wire:
+            raise RuntimeError(f"{key}: the wire codec is off")
+    names = [m.KERNEL for m in hopper.MODULES]
+    res["1.0"] = split_streams(torch, np, hopper, ways, outputs[1.0], 1.0,
+                               [n for n in names if n != "wsola_frames"])
+    say("multi_device_stream", res["1.0"])
+    res["1.5"] = split_streams(torch, np, hopper, ways,
+                               outputs[STRETCH_SPEED], STRETCH_SPEED, names)
+    say("multi_device_stream_stretch", res["1.5"])
+    del ways
+    res["dryrun"] = {}
+    for key, mesh in meshes.items():
+        t0 = time.perf_counter()
+        res["dryrun"][key] = dict(dryrun_multigpu(mesh.devices, dbp),
+                                  wall_s=time.perf_counter() - t0)
+    say("multi_device_dryrun", res["dryrun"])
+    res["exchange"] = run_exchange(np, root, dbp, outputs[1.0][0])
+    say("multi_device_exchange", res["exchange"])
+    res["bundle"] = run_bundle(torch, np, root, served.db)
+    say("multi_device_bundle", res["bundle"])
+    return res
+
+
 LIBRARY_NONE = {
     "compose": "none: units are placed in sequence, each reading the "
                "last one's write",
@@ -1021,12 +1377,13 @@ def main() -> int:
     say("ieee", check_ieee(torch, np))
     kern = check_kernels(torch, np, hopper)
     if "--kernels-only" in sys.argv[1:]:
-        print("chip_smoke.py: --kernels-only, phases 5-6 skipped",
+        print("chip_smoke.py: --kernels-only, phases 5-7 skipped",
               flush=True)
         return 0
     with tempfile.TemporaryDirectory() as root:
-        sl = run_slice(torch, np, hopper, root)
+        sl, served, outputs = run_slice(torch, np, hopper, root)
         run_entry_points(torch, np, hopper, root)
+        run_multi_device(torch, np, hopper, root, served, outputs)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "ctts_tpu."))

@@ -5,7 +5,8 @@ port's executors underneath.
 Counterpart of ctts_tpu/models/engine.py. The device path is the CUDA
 card (ctts_tpu_torch.env.device(), which raises when there is none)
 unless the caller passes a device, as the tests pass
-torch.device("cpu").
+torch.device("cpu"), or a mesh (parallel/mesh.py), over which the batch
+path splits its rows.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from ctts_tpu_torch.config import CTTSConfig, config_defaults, load_config
 from ctts_tpu_torch.constants import MAX_SPEED, MIN_SPEED
 from ctts_tpu_torch.db.reader import VoiceDatabase
+from ctts_tpu_torch.parallel.mesh import first_device
 from ctts_tpu_torch.plan.compiler import SynthesisPlan, compile_plan
 from ctts_tpu_torch.text.rules import NormalizationRules
 
@@ -41,9 +43,6 @@ class CTTSEngine:
         mesh=None,
         device: Optional[torch.device] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported to ctts_tpu_torch")
         if executor not in EXECUTORS:
             raise ValueError(f"executor {executor!r}: not one of "
                              f"{EXECUTORS}")
@@ -51,7 +50,10 @@ class CTTSEngine:
         self.config = config or config_defaults()
         self.rules = rules
         self.executor = executor
+        self.mesh = mesh
         self.device = device
+        # The single-sentence path runs on the mesh's first device.
+        self._device = first_device(mesh, device)
         self._voice = None
         self._batcher = None
         self.units_found = 0
@@ -89,7 +91,7 @@ class CTTSEngine:
 
             if self._voice is None:
                 self._voice = DeviceVoice(self.db, plan.target_rms,
-                                          self.device)
+                                          self._device)
             return execute_plan_torch(plan, self.db, self._voice)
         from ctts_tpu_torch.synth.oracle import execute_plan_oracle
 
@@ -103,7 +105,8 @@ class CTTSEngine:
 
         if self._batcher is None:
             self._batcher = BatchSynthesizer(
-                self.db, self.config, self.rules, device=self.device
+                self.db, self.config, self.rules, mesh=self.mesh,
+                device=self.device
             )
         return self._batcher.synthesize(texts, speed)
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ctts_tpu_torch.ops.hopper.build import check, launch, stream_handle
+from ctts_tpu_torch.ops.hopper.build import check, launch
 
 KERNEL = "assemble"
 SOURCE = "ctts_tpu_torch/csrc/assemble.cu"
@@ -49,8 +49,7 @@ def assemble(bufs, offsets, live_len, WREG: int, OUTW: int):
     check(offsets, "offsets", torch.int32, (B, R), dev)
     check(live_len, "live_len", torch.int32, (B, R), dev)
     out = torch.empty(B, OUTW, dtype=torch.float32, device=dev)
-    launch("ctts_assemble", bufs.data_ptr(), offsets.data_ptr(),
-           live_len.data_ptr(), out.data_ptr(), B, R, WREG, OUTW,
-           stream_handle())
+    launch("ctts_assemble", dev, bufs.data_ptr(), offsets.data_ptr(),
+           live_len.data_ptr(), out.data_ptr(), B, R, WREG, OUTW)
     launches += 1
     return out

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Launcher signatures (csrc/*.cu): device pointers and the stream are
-# void*, sizes are int; each returns its cudaError_t.
+# void*, sizes are int; each returns its cudaError_t. The stream is the
+# last argument, and launch() appends it.
 SIGNATURES = {
     "ctts_pitch_corr": [_P, _P, _P, _P, _I, _P],
     "ctts_compose": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -44,6 +45,7 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _P],
     "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_empty": [_P],
+    "ctts_current_device": [ctypes.POINTER(_I)],
 }
 
 
@@ -130,12 +132,21 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call a launcher on the current stream's arguments; raise on a
-    nonzero cudaError_t (a refused launch never runs and a later
-    synchronize would not report it)."""
+def launch(name: str, device, *args) -> None:
+    """Call a launcher for tensors on `device`: with that device current
+    and, as the last argument, its current stream, so that the kernel
+    runs in order with the eager ops on those tensors whichever device
+    the caller has current. Raise on a nonzero cudaError_t (a refused
+    launch never runs and a later synchronize would not report it)."""
+    import torch
+
     handle = lib()
-    rc = getattr(handle, name)(*args)
+    with torch.cuda.device(device):
+        _raise_on(handle, name, getattr(handle, name)(
+            *args, stream_handle(device)))
+
+
+def _raise_on(handle, name: str, rc: int) -> None:
     if rc != 0:
         msg = handle.ctts_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
@@ -154,12 +165,28 @@ def check(t, name: str, dtype, shape: tuple, device) -> None:
 
 
 def empty_launch() -> None:
-    """One launch of an empty kernel on the current stream: the launch
-    floor that a kernel's time is read against (a measurement)."""
-    launch("ctts_empty", stream_handle())
-
-
-def stream_handle() -> int:
+    """One launch of an empty kernel on the current device's stream: the
+    launch floor that a kernel's time is read against (a measurement)."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    launch("ctts_empty", torch.device("cuda", torch.cuda.current_device()))
+
+
+def stream_handle(device) -> int:
+    """The current stream of `device`, the device of the tensors a kernel
+    is launched for (not of the caller's current device)."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def current_device() -> int:
+    """The device the kernel library's CUDA runtime takes as current (it
+    links cudart statically, beside PyTorch's own): equal to
+    torch.cuda.current_device() when its launches follow the context
+    that torch.cuda.device makes current (checked by chip_smoke.py)."""
+    dev = ctypes.c_int(-1)
+    handle = lib()
+    _raise_on(handle, "ctts_current_device",
+              handle.ctts_current_device(ctypes.byref(dev)))
+    return dev.value

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ctts_tpu_torch.ops import device_ops as dops
-from ctts_tpu_torch.ops.hopper.build import check, launch, stream_handle
+from ctts_tpu_torch.ops.hopper.build import check, launch
 
 KERNEL = "compact"
 SOURCE = "ctts_tpu_torch/csrc/compact.cu"
@@ -44,8 +44,8 @@ def compact(bufs, starts, dst, seg_len, WREG: int):
     for name, t in (("starts", starts), ("dst", dst), ("seg_len", seg_len)):
         check(t, name, torch.int32, (B, R, NBLK), dev)
     out = torch.empty_like(bufs)
-    launch("ctts_compact", bufs.data_ptr(), out.data_ptr(),
+    launch("ctts_compact", dev, bufs.data_ptr(), out.data_ptr(),
            starts.data_ptr(), dst.data_ptr(), seg_len.data_ptr(),
-           B, R, WREG, NBLK, stream_handle())
+           B, R, WREG, NBLK)
     launches += 1
     return out

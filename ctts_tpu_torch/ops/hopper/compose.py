@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ctts_tpu_torch.ops.hopper.build import check, launch, stream_handle
+from ctts_tpu_torch.ops.hopper.build import check, launch
 from ctts_tpu_torch.ops.quant import q16, trunc16
 
 KERNEL = "compose"
@@ -91,9 +91,9 @@ def compose(contrib, fo, base_off, cf_in, n_eff, ana, TOT: int,
     else:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         seg, tail = zero.expand(B, U, SEGW), zero.expand(B, U, CFMAX)
-    launch("ctts_compose", contrib.data_ptr(), fo.data_ptr(),
+    launch("ctts_compose", dev, contrib.data_ptr(), fo.data_ptr(),
            base_off.data_ptr(), cf_in.data_ptr(), n_eff.data_ptr(),
            ana.data_ptr(), buf.data_ptr(), seg.data_ptr(), tail.data_ptr(),
-           B, U, UBUF, CFMAX, TOT, int(export), stream_handle())
+           B, U, UBUF, CFMAX, TOT, int(export))
     launches += 1
     return buf, seg, tail

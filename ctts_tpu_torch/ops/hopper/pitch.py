@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ctts_tpu_torch.ops.hopper.build import check, launch, stream_handle
+from ctts_tpu_torch.ops.hopper.build import check, launch
 
 KERNEL = "pitch_corr"
 SOURCE = "ctts_tpu_torch/csrc/pitch.cu"
@@ -61,7 +61,7 @@ def pitch_corr(seg: torch.Tensor, ana_len: torch.Tensor):
     check(ana_len, "ana_len", torch.int32, (n,), seg.device)
     corr = torch.empty(n, NLAG, dtype=torch.float32, device=seg.device)
     e2 = torch.empty(n, NLAG, dtype=torch.float32, device=seg.device)
-    launch("ctts_pitch_corr", seg.data_ptr(), ana_len.data_ptr(),
-           corr.data_ptr(), e2.data_ptr(), n, stream_handle())
+    launch("ctts_pitch_corr", seg.device, seg.data_ptr(),
+           ana_len.data_ptr(), corr.data_ptr(), e2.data_ptr(), n)
     launches += 1
     return corr, e2

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ctts_tpu_torch.ops.hopper.build import check, launch, stream_handle
+from ctts_tpu_torch.ops.hopper.build import check, launch
 from ctts_tpu_torch.ops.luts import hann
 from ctts_tpu_torch.ops.wsola import FRAME, max_steps_for, wsola_frames_plain
 
@@ -52,10 +52,10 @@ def wsola_frames(inp, sq, input_count, nrun, hop: int, out_size: int,
     pos = torch.empty(B, steps, dtype=torch.int32, device=dev)
     acc = torch.empty(B, out_size, dtype=torch.float32, device=dev)
     norm = torch.empty(B, out_size, dtype=torch.float32, device=dev)
-    launch("ctts_wsola_frames", inp.data_ptr(), sq.data_ptr(),
+    launch("ctts_wsola_frames", dev, inp.data_ptr(), sq.data_ptr(),
            input_count.data_ptr(), nrun.data_ptr(),
            hann(FRAME, dev).data_ptr(), pos.data_ptr(), acc.data_ptr(),
-           norm.data_ptr(), B, S, hop, out_size, steps, stream_handle())
+           norm.data_ptr(), B, S, hop, out_size, steps)
     launches += 1
     if choices is not None:
         choices["pos"] = pos
@@ -70,9 +70,9 @@ def decide(inp, sq, input_count, nrun, max_steps: int, with_load: bool = True):
     so pos no longer follows the input."""
     B, S, dev = _check_inputs("decide", inp, sq, input_count, nrun)
     pos = torch.empty(B, max_steps, dtype=torch.int32, device=dev)
-    launch("ctts_wsola_decide", inp.data_ptr(), sq.data_ptr(),
+    launch("ctts_wsola_decide", dev, inp.data_ptr(), sq.data_ptr(),
            input_count.data_ptr(), nrun.data_ptr(), pos.data_ptr(), B, S,
-           max_steps, int(with_load), stream_handle())
+           max_steps, int(with_load))
     return pos
 
 

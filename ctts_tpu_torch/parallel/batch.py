@@ -1,19 +1,41 @@
-"""Batched serving on one CUDA device: the production path.
+"""Batched serving: the production path, on one device or split over a
+device mesh.
 
-Counterpart of ctts_tpu/parallel/batch.py without the device mesh.
-Texts are lowered on the host (natively through libctts.so, or by the
-Python plan pipeline), grouped into buckets of identical PlanDims,
-stacked, and run through SynthesisCore as one batch per bucket. Each
-batch's valid prefixes are packed into one flat int16 buffer on the
-device, so the host copy is sum(out_len) samples. With the wire codec
-(ops/wire.py; on by default on a CUDA device, as the JAX package turns
-it on on every accelerator) the packed buffer is encoded on the device
-and the host copies the valid word prefix and decodes it in one C pass
-on the drain thread; the samples are the same bit for bit.
+Counterpart of ctts_tpu/parallel/batch.py. Texts are lowered on the host
+(natively through libctts.so, or by the Python plan pipeline), grouped
+into buckets of identical PlanDims, stacked, and run through
+SynthesisCore as one batch per bucket. Each batch's valid prefixes are
+packed into one flat int16 buffer on the device, so the host copy is
+sum(out_len) samples. With the wire codec (ops/wire.py; on by default on
+a CUDA device, as the JAX package turns it on on every accelerator) the
+packed buffer is encoded on the device and the host copies the valid
+word prefix and decodes it in one C pass on the drain thread; the
+samples are the same bit for bit.
 
 Every speed is served (WSOLA for speed != 1.0, with OMAX-wide rows).
-A device mesh is not ported yet and raises NotImplementedError; it
-never runs something else.
+
+With a mesh (parallel/mesh.py) a bucket's rows are split over its
+devices: what the JAX package's shard_map branch computes
+(ctts_tpu/parallel/batch.py:102-143, 254-258, 519-523, 591-611,
+652-668, 692-751), not how XLA computed it. The batch size rounds up to
+lcm(8, mesh size); after the length sort and the pad rows, shard d takes
+the slots [d * rows_per, (d + 1) * rows_per) and runs on mesh.devices[d]
+with that device's replica of the voice, its SynthesisCore and its copy
+stream: the core, pack_rows and, with the codec, an encode of its own
+(the codec is block-local). The batch-global value tables
+(shared_plan_values) are computed once over the whole bucket and given
+to every shard unchanged, as JAX replicates them. The trim makes one
+small copy per shard and sums the overflow counts into one report; the
+drain walks the shards in order and stops at the n real rows, so a shard
+of pad rows only is never copied. The shards are enqueued one after
+another from the calling thread, and the forward path calls no
+collective. Without a mesh the batch is one shard on one device, which
+is the unsplit path: the same calls as before the split existed.
+
+The JAX module's `_no_persistent_cache` and `release_compiled`
+(ctts_tpu/parallel/batch.py:149-199) work around XLA:CPU (a crash while
+serializing a shard_map executable; a crash once many executables are
+resident) and have no counterpart: eager PyTorch compiles nothing.
 """
 
 from __future__ import annotations
@@ -21,7 +43,8 @@ from __future__ import annotations
 import os
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Sequence
+from contextlib import nullcontext
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +52,7 @@ import torch
 from ctts_tpu_torch.config import CTTSConfig
 from ctts_tpu_torch.db.reader import VoiceDatabase
 from ctts_tpu_torch.ops import wire as wire_codec
+from ctts_tpu_torch.parallel.mesh import first_device
 from ctts_tpu_torch.plan.compiler import compile_plan
 from ctts_tpu_torch.plan.split import split_plan
 from ctts_tpu_torch.synth.device import (
@@ -68,8 +92,27 @@ def pack_rows(out: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
     return packed[:B * OM]
 
 
+def on_device(device: torch.device):
+    """Make a CUDA `device` current for the enclosed calls (nothing for
+    the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return nullcontext()
+
+
+class Shard(NamedTuple):
+    """Where one block of a batch's rows runs: the device, the core over
+    that device's voice replica, and the side stream of its host copies
+    (None on the CPU). Shards on one device share its core and stream."""
+
+    device: torch.device
+    core: SynthesisCore
+    copy_stream: Optional[torch.cuda.Stream]
+
+
 class BatchSynthesizer:
-    """High-throughput batched synthesis on one CUDA device."""
+    """High-throughput batched synthesis on one device, or with its rows
+    split over a device mesh."""
 
     def __init__(
         self,
@@ -83,12 +126,11 @@ class BatchSynthesizer:
         native_plans: bool = True,
         device: Optional[torch.device] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported to ctts_tpu_torch")
+        device = first_device(mesh, device)
         self.db = db
         self.config = config
         self.rules = rules
+        self.mesh = mesh
         self.dims_floor = dims_floor
         self.voice = DeviceVoice(db, target_rms, device)
         self.device = self.voice.device
@@ -100,14 +142,23 @@ class BatchSynthesizer:
             wire = (env == "1" if env in ("0", "1")
                     else self.device.type == "cuda")
         self.wire = bool(wire)
-        self.core = SynthesisCore(self.voice)
+        # One voice replica, core and copy stream per distinct device
+        # (the replicated voice of ctts_tpu/parallel/batch.py:254-258).
+        devices = mesh.devices if mesh is not None else (self.device,)
+        per_device = {}
+        for dev in devices:
+            if dev not in per_device:
+                voice = (self.voice if dev == self.device
+                         else self.voice.replica(dev))
+                per_device[dev] = Shard(
+                    dev, SynthesisCore(voice),
+                    torch.cuda.Stream(dev) if dev.type == "cuda" else None)
+        self.shards = [per_device[dev] for dev in devices]
         self._nl = None
         if native_plans:
             from ctts_tpu_torch.plan.native_lower import NativeLowerer
 
             self._nl = NativeLowerer(db.path, config, rules)
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
 
     # -- plan side ---------------------------------------------------------
 
@@ -196,7 +247,8 @@ class BatchSynthesizer:
         per_bucket = []
         for bd, idxs in buckets.items():
             n = len(idxs)
-            stacked = nl.alloc_stacked(bd, _next_batch_size(n, 1))
+            stacked = nl.alloc_stacked(
+                bd, _next_batch_size(n, len(self.shards)))
             for slot, ri in enumerate(idxs):
                 nl.fill_into(ri, bd, stacked, slot)
             stacked["threshold"][:] = thr
@@ -218,7 +270,7 @@ class BatchSynthesizer:
         per_bucket = []
         for bd, idxs in buckets.items():
             n = len(idxs)
-            bsz = _next_batch_size(n, 1)
+            bsz = _next_batch_size(n, len(self.shards))
             stacked = None
             for slot, i in enumerate(idxs):
                 arrays = fill_device_plan(walked[i], self.db, bd).arrays
@@ -259,16 +311,31 @@ class BatchSynthesizer:
                         for bd, idxs, prep in per_bucket]
 
     def _enqueue_bucket(self, dims: PlanDims, prep):
+        """Enqueue each shard's block of slots on its device, in mesh
+        order; returns (n, rows per shard, the shards' handles)."""
         n, stacked, shared = prep
-        out, out_lens, ovf = self.core(dims, stacked, shared)
-        packed = pack_rows(out, out_lens)
-        if not self.wire:
-            return n, packed, None, out_lens, ovf
-        pad = -packed.shape[0] % wire_codec.WIRE_BLOCK
-        if pad:
-            packed = torch.cat([packed, packed.new_zeros(pad)])
-        words, classes = wire_codec.encode(packed)
-        return n, words, classes, out_lens, ovf
+        rows = stacked["speed"].shape[0] // len(self.shards)
+        return n, rows, [
+            self._enqueue_shard(shard, dims, {
+                k: v[d * rows:(d + 1) * rows] for k, v in stacked.items()},
+                shared)
+            for d, shard in enumerate(self.shards)]
+
+    def _enqueue_shard(self, shard: Shard, dims: PlanDims, arrays: dict,
+                       shared: dict):
+        """The core over one shard's rows, pack_rows and, with the codec,
+        encode, all on the shard's device: (payload, classes or None,
+        out_lens, ovf)."""
+        with on_device(shard.device):
+            out, out_lens, ovf = shard.core(dims, arrays, shared)
+            packed = pack_rows(out, out_lens)
+            if not self.wire:
+                return packed, None, out_lens, ovf
+            pad = -packed.shape[0] % wire_codec.WIRE_BLOCK
+            if pad:
+                packed = torch.cat([packed, packed.new_zeros(pad)])
+            words, classes = wire_codec.encode(packed)
+        return words, classes, out_lens, ovf
 
     def _trim(self, enqueued):
         n_rows, per_bucket = enqueued
@@ -276,44 +343,73 @@ class BatchSynthesizer:
                         for idxs, handle in per_bucket]
 
     def _trim_bucket(self, handle):
-        """Sync the per-row lengths, the overflow counts and, with the
-        wire codec, the block classes in one small copy; report
-        overflow; then start copying the valid prefix of the packed
-        buffer (or of the wire words) to pinned host memory on the side
-        stream, so that the copy runs beside the next batch's compute."""
-        n, payload, classes, out_lens, ovf = handle
-        small = [out_lens, ovf] + ([] if classes is None else [classes])
-        small = torch.cat(small).cpu().numpy()
-        B = out_lens.shape[0]
-        warn_overflow(int(small[B:2 * B].sum()))
-        ends = np.cumsum(small[:n].astype(np.int64))
-        total = int(ends[-1])
-        if classes is not None:
-            classes = small[2 * B:]
-            count = wire_codec.wire_valid_words(classes, total)
-        else:
-            count = total
-        if self._copy_stream is None:
-            return n, payload[:count].numpy().copy(), classes, None, ends
-        host = torch.empty(count, dtype=payload.dtype, pin_memory=True)
-        self._copy_stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self._copy_stream):
-            host.copy_(payload[:count], non_blocking=True)
+        """Per shard, sync the row lengths, the overflow counts and, with
+        the wire codec, the block classes in one small copy; report the
+        bucket's overflow once; then start copying the valid prefix of
+        the shard's packed buffer (or of its wire words) to pinned host
+        memory on the shard's copy stream, so that the copy runs beside
+        the next batch's compute. Shards past the n real rows hold pad
+        rows only and are not copied. Returns, per shard with real rows,
+        (host buffer, copy event or None, classes or None, row ends)."""
+        n, rows, handles = handle
+        trimmed, n_ovf = [], 0
+        for d, (shard, (payload, classes, out_lens, ovf)) in enumerate(
+                zip(self.shards, handles)):
+            small = [out_lens, ovf] + ([] if classes is None else [classes])
+            small = torch.cat(small).cpu().numpy()
+            n_ovf += int(small[rows:2 * rows].sum())
+            n_d = min(n - d * rows, rows)
+            if n_d <= 0:
+                continue
+            ends = np.cumsum(small[:n_d].astype(np.int64))
+            total = int(ends[-1])
+            if classes is not None:
+                classes = small[2 * rows:]
+                count = wire_codec.wire_valid_words(classes, total)
+            else:
+                count = total
+            trimmed.append((*self._copy_prefix(shard, payload[:count]),
+                            classes, ends))
+        warn_overflow(n_ovf)
+        return trimmed
+
+    @staticmethod
+    def _copy_prefix(shard: Shard, prefix: torch.Tensor):
+        """(host copy, event that marks its end): on the CPU a plain copy
+        and no event; on a card a pinned buffer filled on the shard's
+        copy stream after the work queued on its device's stream."""
+        if shard.copy_stream is None:
+            return prefix.numpy().copy(), None
+        host = torch.empty(prefix.shape[0], dtype=prefix.dtype,
+                           pin_memory=True)
+        with on_device(shard.device):
+            shard.copy_stream.wait_stream(
+                torch.cuda.current_stream(shard.device))
+            with torch.cuda.stream(shard.copy_stream):
+                host.copy_(prefix, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
-        payload.record_stream(self._copy_stream)
-        return n, host, classes, done, ends
+            done.record(shard.copy_stream)
+        prefix.record_stream(shard.copy_stream)
+        return host, done
 
     def _drain(self, trimmed):
+        """Walk each bucket's shards in order, mapping slots back to row
+        ids: wait for the shard's copy, decode it with the codec, and
+        slice its rows."""
         n_rows, per_bucket = trimmed
         results: list = [None] * n_rows
-        for idxs, (n, host, classes, done, ends) in per_bucket:
-            if done is not None:
-                done.synchronize()
-                host = host.numpy()
-            if classes is not None:
-                host = wire_codec.decode_host(host, classes, int(ends[-1]))
-            for slot in range(n):
-                s = int(ends[slot - 1]) if slot else 0
-                results[idxs[slot]] = host[s:int(ends[slot])].copy()
+        for idxs, shards in per_bucket:
+            slot = 0
+            for host, done, classes, ends in shards:
+                if done is not None:
+                    done.synchronize()
+                    host = host.numpy()
+                if classes is not None:
+                    host = wire_codec.decode_host(host, classes,
+                                                  int(ends[-1]))
+                start = 0
+                for end in ends:
+                    results[idxs[slot]] = host[start:int(end)].copy()
+                    start = int(end)
+                    slot += 1
         return results

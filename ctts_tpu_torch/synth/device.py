@@ -93,12 +93,27 @@ class DeviceVoice:
             from ctts_tpu_torch.env import device as cuda_device
 
             device = cuda_device()
-        self.device = torch.device(device)
-        self.bank = torch.tensor(bank, device=self.device)
+        self.bank = torch.tensor(bank, device=torch.device(device))
+        # The bank's own device: "cuda" resolved to its index, so that
+        # later calls do not follow whichever device is current then.
+        self.device = self.bank.device
         self.lengths = torch.tensor(lengths, device=self.device)
         self.gains = torch.tensor(gains, device=self.device)
         self.lengths_np = lengths
         self.ubuf = bank.shape[1]
+
+    def replica(self, device: torch.device) -> "DeviceVoice":
+        """This voice with its tensors copied to another device: the
+        voice a mesh replicates on each of its devices
+        (ctts_tpu/parallel/batch.py:254-258)."""
+        voice = DeviceVoice.__new__(DeviceVoice)
+        voice.bank = self.bank.to(device)
+        voice.device = voice.bank.device
+        voice.lengths = self.lengths.to(voice.device)
+        voice.gains = self.gains.to(voice.device)
+        voice.lengths_np = self.lengths_np
+        voice.ubuf = self.ubuf
+        return voice
 
 
 def _upload(v: np.ndarray, device: torch.device) -> torch.Tensor:

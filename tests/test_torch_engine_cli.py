@@ -203,9 +203,12 @@ def test_engine_torch_matches_oracle(voice_db):
 
 def test_engine_oracle_setters_and_rejects(voice_db):
     from ctts_tpu_torch.models.engine import CTTSEngine
+    from ctts_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError):
-        CTTSEngine(voice_db, device=CPU, mesh=object())
+    with pytest.raises(TypeError):
+        CTTSEngine(voice_db, mesh=object())
+    with pytest.raises(ValueError, match="not both"):
+        CTTSEngine(voice_db, device=CPU, mesh=make_mesh([CPU]))
     with pytest.raises(ValueError):
         CTTSEngine(voice_db, executor="jax")
     eng = CTTSEngine(voice_db, executor="oracle")

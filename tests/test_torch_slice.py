@@ -9,8 +9,9 @@ oracle, on the CPU.
     test_stream_matches_synthesize, at speed 1.0 and 1.5, equals its
     own synthesize exactly and ctts_tpu's BatchSynthesizer.synthesize
     within 2 LSB.
-(c) what the port does not serve yet (a mesh) raises
-    NotImplementedError; the wire codec and every speed are served.
+(c) a mesh that is not a parallel.mesh.Mesh raises TypeError (the
+    split itself: tests/test_torch_mesh.py); the wire codec and every
+    speed are served.
 """
 
 import jax
@@ -106,8 +107,8 @@ def test_unserved_arguments_raise(db):
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
 
     cfg = config_defaults()
-    with pytest.raises(NotImplementedError):
-        BatchSynthesizer(db, cfg, device=CPU, mesh=object())
+    with pytest.raises(TypeError):
+        BatchSynthesizer(db, cfg, mesh=object())
     assert BatchSynthesizer(db, cfg, device=CPU, wire=True).wire
     bs = BatchSynthesizer(db, cfg, device=CPU)
     plan = compile_plan(db, "a rosa azul", cfg, None, 1.2)

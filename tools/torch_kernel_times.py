@@ -49,46 +49,18 @@ def main() -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     hopper.build.lib()
-    ins = cs.kernel_inputs(np)
-
-    def cuda(*xs):
-        return [torch.as_tensor(x, device="cuda") for x in xs]
-
-    seg, ana = cuda(*ins["pitch"])
-    ana220 = torch.full_like(ana, 220)
-    bufs, offsets, live = cuda(*ins["assemble"])
-    adv_offsets, adv_live = cuda(*ins["assemble_adversarial"])
-    outw = cs.MARGIN + cs.SMAX
-    P, A = hopper.pitch, hopper.assemble
-    cases = {
-        "pitch_corr": (lambda: P.pitch_corr(seg, ana),
-                       lambda: P.pitch_corr_plain(seg, ana)),
-        "pitch_corr L=220": (lambda: P.pitch_corr(seg, ana220),
-                             lambda: P.pitch_corr_plain(seg, ana220)),
-        "assemble": (lambda: A.assemble(bufs, offsets, live, cs.WREG, outw),
-                     lambda: A.assemble_plain(bufs, offsets, live, cs.WREG,
-                                              outw)),
-        "assemble adversarial": (
-            lambda: A.assemble(bufs, adv_offsets, adv_live, cs.WREG, outw),
-            lambda: A.assemble_plain(bufs, adv_offsets, adv_live, cs.WREG,
-                                     outw)),
-        "assemble scalar path": (
-            lambda: A.assemble(bufs, offsets, live, cs.WREG, outw - 2),
-            lambda: A.assemble_plain(bufs, offsets, live, cs.WREG,
-                                     outw - 2)),
-    }
-    for name, (kern, plain) in cases.items():
-        got, want = kern(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        torch.cuda.synchronize()
+    t = cs.kernel_tensors(torch, cs.kernel_inputs(np), torch.device("cuda"))
+    for name, (kern, plain, _, _) in cs.kernel_cases(hopper, t).items():
+        if not name.startswith(("pitch_corr", "assemble")):
+            continue
+        equal, _, _ = cs.compare(torch, kern, plain)
         print(f"times {name} " + json.dumps({
-            "root": root,
-            "equal": all(torch.equal(g, w) for g, w in zip(got, want)),
+            "root": root, "equal": equal,
             "ms": cs.device_ms(kern, 50), "host_ms": cs.time_ms(kern, 20)}),
             flush=True)
+    P = hopper.pitch
     for n in (2048, 528, 132):
-        s = seg[:n].contiguous()
+        s = t["seg"][:n].contiguous()
         for L in (0, 4, 60, 120, 220):
             a = torch.full((n,), L, dtype=torch.int32, device="cuda")
             print(f"sweep pitch_corr n={n} L={L} " + json.dumps({
