@@ -26,23 +26,36 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      time of a zero fill of their output; for pitch an empty kernel's
      launch (the launch floor);
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
-     16 bench texts x 8 at speed 1.0 and again at speed 1.5 (WSOLA), as
-     served (the wire codec on: the default on a CUDA device) and with
-     wire=False, in turns. Each speed shows every kernel's launch count
-     on the served stream, the two streams' outputs equal bit for bit
-     and held to the NumPy oracle (equal lengths, <= 2 LSB), and for
-     each way the steady-state audio-seconds of output per wall-second
-     and peak memory (at 1.0 also the share of the pitch kernel's rows
-     at L = 220); for the codec, wire bytes over valid int16 bytes, the
-     encode's device time on that stream's last packed buffer, the one
-     copy of lengths, overflow counts and classes to the host, and
-     decode_host's host time per batch. Then one synchronous synthesize
-     of the batch at speed 0.5, held to the oracle the same way. The
-     stream yields batch N after batch N+2 is enqueued, so per-yield
-     intervals are not batch periods: the steady rate of batches 2-3 is
-     their audio over the wall time a 3-batch stream takes beyond a
-     1-batch stream (the same fill and drain cancel), medians of
-     interleaved repeats; the last 3-batch stream is the counted run;
+     16 bench texts (batch i: the texts rotated by i, 7 times over, and
+     16 rows of text i, so that every batch differs and a batch
+     overwritten by the next would show) at speed 1.0 and again at
+     speed 1.5 (WSOLA), through the compiled core (a CUDA graph per
+     signature, captured at first use and replayed) as served (the
+     wire codec on: the default on a CUDA device) and with wire=False,
+     and through the eager core (the same BatchSynthesizer, its shards
+     run op by op), all four in turns. Each speed shows every kernel's
+     launch count on the served stream (per replay), every graph output
+     equal to the eager one bit for bit, wire on equal to wire off, the
+     outputs held to the NumPy oracle (equal lengths, <= 2 LSB), and for
+     each way the steady-state audio-seconds of output per wall-second,
+     the host enqueue ms of each shard (staging and the replay, or the
+     eager launches) and peak memory (at 1.0 also the share of the
+     pitch kernel's rows at L = 220); the graphs captured (capture s,
+     launches per replay per kernel); the device idle share of a
+     3-batch stream under torch.profiler, served and eager; for the
+     codec, wire bytes over valid int16 bytes, the encode's device time
+     on that stream's last packed buffer, the one copy of lengths,
+     overflow counts and classes to the host, and decode_host's host
+     time per batch. Then one synchronous synthesize of batch 0 at
+     speed 0.5 through its graph, equal to the eager one and held to
+     the oracle, and the card's memory over a served and an eager
+     3-batch stream at 1.0 with every signature captured. The stream
+     yields batch N after batch N+2 is enqueued, so per-yield intervals
+     are not batch periods: the steady rate of batches 2-3 is their
+     audio over the wall time a 3-batch stream takes beyond a 1-batch
+     stream (the same fill and drain cancel), medians of interleaved
+     repeats; the last 3-batch stream is the counted run. A failed
+     capture or replay raises;
   6. the entry points: `python -m ctts_tpu_torch.cli build` of the
      generated dataset (byte-equal to phase 5's voice.db), then `synth`
      in a subprocess at speed 1.0 (no flags: the torch executor on the
@@ -58,13 +71,15 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      against their plain versions (with one card a line says this was
      not run); stream() over phase 5's batches at 1.0 and 1.5 through a
      mesh of every visible card (make_mesh()) and through [cuda:0,
-     cuda:0] (two shards on one card), in turns with the unsplit served
-     BatchSynthesizer, each output equal to phase 5's served stream bit
-     for bit, with launch counts, steady audio-s/s, each shard's host
-     enqueue ms and peak memory per device; dryrun_multigpu on both
-     meshes; two processes over gloo, both on cuda:0, through
-     synthesize_across_hosts over one batch, process 0's gather equal to
-     the unsplit served output, with each all_gather's bytes and time;
+     cuda:0] (two shards on one card, one graph for both), each with
+     its graphs (wire on and off) and eager, in turns with the unsplit
+     served BatchSynthesizer, each output equal to phase 5's eager
+     stream bit for bit, with launch counts, steady audio-s/s, each
+     shard's host enqueue ms and peak memory per device;
+     dryrun_multigpu on both meshes; two processes over gloo, both on
+     cuda:0, through synthesize_across_hosts over one batch, process
+     0's gather equal to the unsplit served output, with each
+     all_gather's bytes and time;
      the voice bundle saved, loaded on the card and used for one
      sentence, equal to DeviceVoice's, with both load times.
 With --kernels-only the script stops after phase 4.
@@ -640,17 +655,141 @@ def held_to(np, got, ref, what: str) -> int:
     return d
 
 
+def batch_texts(i: int) -> list:
+    """Batch i of a stream: the 16 texts rotated by i, 7 times over, and
+    16 more rows of text i: every batch holds all 16 texts (one bucket,
+    one signature) but in other rows and other numbers, so that a batch
+    overwritten by the next one would show."""
+    rot = TEXTS[i:] + TEXTS[:i]
+    return rot * (BATCH_MULT - 1) + [rot[0]] * len(TEXTS)
+
+
 def check_oracle(np, db, config, batches, speed: float) -> int:
-    """Every output of the bench batches is held to the oracle; returns
-    the largest difference."""
-    worst = 0
-    for j, text in enumerate(TEXTS):
-        ref = oracle(db, config, text, speed)
-        for outs in batches:
-            for rep in range(BATCH_MULT):
-                worst = max(worst, held_to(np, outs[rep * len(TEXTS) + j],
-                                           ref, f"{text!r} at {speed}"))
+    """Every output of the stream batches (batch i holds batch_texts(i))
+    is held to the oracle; returns the largest difference."""
+    worst, refs = 0, {}
+    for i, outs in enumerate(batches):
+        texts = batch_texts(i)
+        if len(outs) != len(texts):
+            raise RuntimeError(f"batch {i}: {len(outs)} outputs for "
+                               f"{len(texts)} texts")
+        for text, out in zip(texts, outs):
+            if text not in refs:
+                refs[text] = oracle(db, config, text, speed)
+            worst = max(worst, held_to(np, out, refs[text],
+                                       f"{text!r} at {speed}"))
     return worst
+
+
+def equal_outputs(np, got, want, what: str) -> None:
+    """Two streams' outputs are equal bit for bit, batch by batch."""
+    if len(got) != len(want):
+        raise RuntimeError(f"{what}: {len(got)} batches, want {len(want)}")
+    for b, (outs, ref) in enumerate(zip(got, want)):
+        if len(outs) != len(ref):
+            raise RuntimeError(f"{what}: batch {b} has {len(outs)} rows")
+        for j, (o, r) in enumerate(zip(outs, ref)):
+            if o.dtype != r.dtype or not np.array_equal(o, r):
+                raise RuntimeError(f"{what}: batch {b} row {j} differs")
+
+
+def eager_twin(bs):
+    """`bs` with its shards run by the eager core (op by op, freshly
+    staged) in place of the compiled one: the reference a graph is held
+    to, and the parent's way of serving, for the timings."""
+    from ctts_tpu_torch.synth import compiled
+
+    bs._run_core = compiled.run_eager
+    return bs
+
+
+def timed_method(bs, name: str, log: list):
+    """Wraps bs.<name> to append each call's host seconds to `log`
+    (_enqueue_shard: a shard's staging and its replay or eager
+    launches, pack and encode; _lower_batch: a batch's host lowering);
+    `del bs.<name>` restores it."""
+    run = getattr(bs, name)
+
+    def call(*args):
+        t0 = time.perf_counter()
+        out = run(*args)
+        log.append(time.perf_counter() - t0)
+        return out
+    setattr(bs, name, call)
+
+
+def captures(bs) -> list:
+    """The graphs captured for bs's cores: signature, capture seconds
+    (the warm-up run included) and kernel launches per replay."""
+    from ctts_tpu_torch.synth import compiled
+
+    toks = {getattr(s.core, "_graph_token", None) for s in bs.shards}
+    out = []
+    for sig in compiled.signatures():
+        if sig.core in toks:
+            entry = compiled.captured(sig)
+            out.append({"device": sig.device, "rows": dict(
+                (n, shape) for n, _, shape in sig.layout)["speed"][0],
+                "stretch": sig.dims.stretch, "hop": sig.dims.synth_hop,
+                "trips": sig.trips, "wire": sig.wire,
+                "capture_s": entry.capture_s,
+                "launches_per_replay": dict(entry.launches)})
+    return out
+
+
+def device_idle(torch, run, batches: int) -> dict:
+    """torch.profiler (CPU and CUDA) over run(): the window is the
+    host span of run(), the device busy time the union of the kernel,
+    copy and fill intervals of the card inside it. Returns the idle
+    share, the kernel time per batch and the largest kernels, or
+    "not measured" when the trace holds no device activity. Kernels
+    replayed from a CUDA graph are traced as kernels too."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("ctts_window"):
+                run()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace.get("traceEvents", trace) if isinstance(trace, dict) \
+        else trace
+    window = [e for e in events if e.get("name") == "ctts_window"
+              and e.get("ph") == "X"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not window or not dev:
+        return {"idle_share": "not measured",
+                "reason": "the trace holds no device activity"}
+    w0 = float(window[0]["ts"])
+    w1 = w0 + float(window[0]["dur"])
+    spans = sorted((max(float(e["ts"]), w0),
+                    min(float(e["ts"]) + float(e["dur"]), w1)) for e in dev)
+    busy, end = 0.0, w0
+    for a, b in spans:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    kern = [e for e in dev if e["cat"] == "kernel"]
+    by_name: dict = {}
+    for e in kern:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"window_ms": (w1 - w0) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / (w1 - w0),
+            "kernels": len(kern),
+            "kernel_ms_per_batch": sum(by_name.values()) / 1e3 / batches,
+            "copy_fill_ms_per_batch": sum(
+                float(e["dur"]) for e in dev if e["cat"] != "kernel")
+            / 1e3 / batches,
+            "top_kernels_ms_per_batch": [(n[:60], d / 1e3 / batches)
+                                         for n, d in top]}
 
 
 def record_pitch_lengths(torch, hopper, run) -> dict:
@@ -726,28 +865,35 @@ def sync_ms(torch, np, classes, B: int, reps: int = 21) -> float:
     return float(np.median(times))
 
 
-def serve(torch, np, hopper, served, plain, speed: float,
-          kernels: list) -> dict:
-    """stream() over N_BATCHES batches at one speed through `served`
-    (the wire codec on) and `plain` (wire=False) in turns, timed, equal
-    to each other and held to the oracle; the launch counts are those
-    of the served last 3-batch stream, and every kernel in `kernels`
-    must have launched there."""
+def stream_of(torch, bs, n: int, speed: float):
+    """(outputs, wall s) of stream() over batches 0..n-1, from an idle
+    card to the last batch on the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = list(bs.stream((batch_texts(i) for i in range(n)), speed=speed))
+    return got, time.perf_counter() - t0
+
+
+def serve(torch, np, hopper, ways: dict, speed: float,
+          kernels: list) -> tuple:
+    """stream() over N_BATCHES batches at one speed through each way in
+    turns: the served BatchSynthesizer (graphs, the wire codec on),
+    `plain` (graphs, wire=False) and their eager twins. Every graph
+    output equals its eager twin's bit for bit, wire on equals wire off,
+    and the served outputs are held to the oracle. The launch counts are
+    those of the served last 3-batch stream (per replay), where every
+    kernel in `kernels` must have launched; each way's host enqueue ms a
+    shard, drain ms, steady rate and peak memory, the graphs' captures,
+    and the device idle share of a profiled 3-batch stream, served and
+    eager."""
     from ctts_tpu_torch.ops import wire
 
-    texts = TEXTS * BATCH_MULT
-    ways = {"wire": served, "plain": plain}
-
-    def timed_stream(bs, n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = list(bs.stream((texts for _ in range(n)), speed=speed))
-        return got, time.perf_counter() - t0
-
+    served = ways["wire"]
     # Host seconds of each batch's drain (_finish: wait for the copy,
     # decode with the codec, slice rows), on the drain thread but the
     # last batch's, which runs on the main thread.
     drains = {k: [] for k in ways}
+    enqueue = {k: [] for k in ways}
 
     def timed_finish(bs, key):
         finish = bs._finish
@@ -759,32 +905,40 @@ def serve(torch, np, hopper, served, plain, speed: float,
             return out
         return run
 
+    lower = {k: [] for k in ways}
     for key, bs in ways.items():
         bs._finish = timed_finish(bs, key)
+        timed_method(bs, "_enqueue_shard", enqueue[key])
+        timed_method(bs, "_lower_batch", lower[key])
     with WireProbe(wire) as probe:
-        # First-use set-up, untimed; at speed 1.0 it also records the
-        # analysis length of every row the pitch kernel gets.
+        # First-use set-up, untimed: the graphs of every signature of
+        # the stream are captured here. At speed 1.0 the eager way also
+        # records the analysis length of every row the pitch kernel
+        # gets (in a graph the recording would be captured).
         lengths = None
-        if speed == 1.0:
-            lengths = record_pitch_lengths(
-                torch, hopper, lambda: timed_stream(served, 1))
-        else:
-            timed_stream(served, 1)
-        timed_stream(plain, 1)
+        for key, bs in ways.items():
+            if speed == 1.0 and key == "eager":
+                lengths = record_pitch_lengths(
+                    torch, hopper, lambda: stream_of(torch, bs, N_BATCHES,
+                                                     speed))
+            else:
+                stream_of(torch, bs, N_BATCHES, speed)
         walls = {k: ([], []) for k in ways}
         batches, peak = {}, {}
         for rep in range(TIMING_REPEATS):
             last = rep == TIMING_REPEATS - 1
             for key in (ways if rep % 2 == 0 else list(ways)[::-1]):
                 bs = ways[key]
-                walls[key][0].append(timed_stream(bs, 1)[1])
+                walls[key][0].append(stream_of(torch, bs, 1, speed)[1])
                 if last:
                     torch.cuda.reset_peak_memory_stats()
                     drains[key].clear()
+                    enqueue[key].clear()
+                    lower[key].clear()
                     if key == "wire":
                         hopper.reset_launches()
                         probe.decodes.clear()
-                batches[key], wall = timed_stream(bs, N_BATCHES)
+                batches[key], wall = stream_of(torch, bs, N_BATCHES, speed)
                 walls[key][1].append(wall)
                 if last:
                     peak[key] = torch.cuda.max_memory_allocated()
@@ -792,18 +946,17 @@ def serve(torch, np, hopper, served, plain, speed: float,
                         launches = hopper.launch_counts()
                         decodes = list(probe.decodes)
         packed, classes = probe.last
+        idle = {key: stream_idle(torch, ways[key], speed)
+                for key in ways}
     for bs in ways.values():
-        del bs._finish
+        del bs._finish, bs._enqueue_shard, bs._lower_batch
 
-    for key, got in batches.items():
-        if len(got) != N_BATCHES or any(len(o) != len(texts) for o in got):
-            raise RuntimeError(f"{key} stream did not yield every batch "
-                               "in full")
-    for outs_w, outs_p in zip(batches["wire"], batches["plain"]):
-        for j, (a, b) in enumerate(zip(outs_w, outs_p)):
-            if a.dtype != b.dtype or not np.array_equal(a, b):
-                raise RuntimeError(f"speed {speed}: wire-on and wire-off "
-                                   f"outputs differ at row {j}")
+    equal_outputs(np, batches["wire"], batches["eager"],
+                  f"speed {speed}: graph vs eager, wire on")
+    equal_outputs(np, batches["plain"], batches["eager_plain"],
+                  f"speed {speed}: graph vs eager, wire off")
+    equal_outputs(np, batches["wire"], batches["plain"],
+                  f"speed {speed}: wire on vs wire off")
     worst = check_oracle(np, served.db, served.config, batches["wire"],
                          speed)
     missing = [k for k in kernels if launches[k] <= 0]
@@ -813,10 +966,12 @@ def serve(torch, np, hopper, served, plain, speed: float,
     audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
              for outs in batches["wire"]]
     res = {"speed": speed, "batches": N_BATCHES,
-           "sentences_per_batch": len(texts), "distinct_texts": len(TEXTS),
+           "sentences_per_batch": len(batch_texts(0)),
+           "distinct_texts": len(TEXTS), "graph_equals_eager": True,
            "wire_equals_plain": True, "oracle_max_abs_diff": worst,
            "launches": launches, "audio_s_per_batch": audio,
-           "pitch_rows": lengths}
+           "pitch_rows": lengths, "captures": captures(served)
+           + captures(ways["plain"]), "device_idle": idle}
     for key in ways:
         w1, wn = walls[key]
         wall_1 = sorted(w1)[TIMING_REPEATS // 2]
@@ -827,6 +982,9 @@ def serve(torch, np, hopper, served, plain, speed: float,
             "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
             "steady_audio_s_per_wall_s_each": [
                 sum(audio[1:]) / (b - a) for a, b in zip(w1, wn)],
+            "enqueue_ms_per_shard": [d * 1e3 for d in enqueue[key]],
+            "enqueue_ms_median": float(np.median(enqueue[key])) * 1e3,
+            "lower_ms": [d * 1e3 for d in lower[key]],
             "drain_ms": [d * 1e3 for d in drains[key]],
             "max_memory_allocated_bytes": peak[key]}
     words = sum(d[0] for d in decodes)
@@ -837,18 +995,59 @@ def serve(torch, np, hopper, served, plain, speed: float,
         "encode_device_ms": device_ms(lambda: wire.encode(packed), 10),
         "encode_input_samples": int(packed.shape[0]),
         "sync_lens_ovf_classes_ms": sync_ms(torch, np, classes,
-                                            len(texts)),
-        "sync_int32_values": 2 * len(texts) + int(classes.shape[0]),
+                                            len(batch_texts(0))),
+        "sync_int32_values": 2 * len(batch_texts(0))
+        + int(classes.shape[0]),
         "decode_host_ms": [d[2] * 1e3 for d in decodes]})
-    return res, batches["wire"]
+    return res, batches["eager"]
+
+
+def stream_idle(torch, bs, speed: float) -> dict:
+    """device_idle over a 3-batch and a 1-batch stream: the 3-batch
+    stream's idle share, and that of batches 2-3 alone (the two streams'
+    difference in busy time over their difference in wall time, as the
+    steady rate is taken)."""
+    three = device_idle(torch, lambda: stream_of(torch, bs, N_BATCHES,
+                                                 speed), N_BATCHES)
+    one = device_idle(torch, lambda: stream_of(torch, bs, 1, speed), 1)
+    if "busy_ms" not in three or "busy_ms" not in one:
+        return three
+    return dict(three, one_batch_window_ms=one["window_ms"],
+                one_batch_busy_ms=one["busy_ms"],
+                idle_share_batches_2_3=1.0 - (
+                    three["busy_ms"] - one["busy_ms"])
+                / (three["window_ms"] - one["window_ms"]))
+
+
+def graph_memory(torch, served, eager) -> dict:
+    """The card's memory while serving 3 batches at 1.0 with every
+    signature of phase 5 captured: after empty_cache, the peak reserved
+    bytes of the served stream (the graphs' shared pool included) and of
+    the eager stream, with their peak allocated bytes."""
+    from ctts_tpu_torch.synth import compiled
+
+    res = {"graphs_captured": len(compiled.signatures())}
+    for key, bs in (("graph", served), ("eager", eager)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        stream_of(torch, bs, N_BATCHES, 1.0)
+        res[key] = {"reserved_before_bytes": base,
+                    "max_memory_reserved_bytes":
+                        torch.cuda.max_memory_reserved(),
+                    "max_memory_allocated_bytes":
+                        torch.cuda.max_memory_allocated()}
+    return res
 
 
 def run_slice(torch, np, hopper, root: str):
     """The serving path end to end on the card, held to the oracle:
     speed 1.0 (K1-K4), speed 1.5 and a synchronous batch at 0.5 (all
-    five kernels), with the wire codec on as served and off. Returns the
-    results, the served BatchSynthesizer and its stream outputs per
-    speed (phase 7 holds the split to them)."""
+    five kernels), through the graphs and the eager core, with the wire
+    codec on as served and off. Returns the results, the served
+    BatchSynthesizer and its eager stream outputs per speed (phase 7
+    holds the split to them)."""
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
@@ -856,23 +1055,28 @@ def run_slice(torch, np, hopper, root: str):
     names = [m.KERNEL for m in hopper.MODULES]
     db = VoiceDatabase(make_voice(root))
     dev = torch.device("cuda")
-    served = BatchSynthesizer(db, config_defaults(), device=dev,
-                              dims_floor=FLOOR)
-    plain = BatchSynthesizer(db, config_defaults(), device=dev,
-                             dims_floor=FLOOR, wire=False)
-    if not served.wire or plain.wire:
+
+    def make(**kw):
+        return BatchSynthesizer(db, config_defaults(), device=dev,
+                                dims_floor=FLOOR, **kw)
+
+    ways = {"wire": make(), "plain": make(wire=False),
+            "eager": eager_twin(make()),
+            "eager_plain": eager_twin(make(wire=False))}
+    served = ways["wire"]
+    if not served.wire or ways["plain"].wire:
         raise RuntimeError("BatchSynthesizer on the card does not serve "
                            "with the wire codec by default")
     res, outputs = {}, {}
     res["1.0"], outputs[1.0] = serve(
-        torch, np, hopper, served, plain, 1.0,
+        torch, np, hopper, ways, 1.0,
         [n for n in names if n != "wsola_frames"])
     say("slice", res["1.0"])
     res["1.5"], outputs[STRETCH_SPEED] = serve(
-        torch, np, hopper, served, plain, STRETCH_SPEED, names)
+        torch, np, hopper, ways, STRETCH_SPEED, names)
     say("slice_stretch", res["1.5"])
 
-    texts = TEXTS * BATCH_MULT
+    texts = batch_texts(0)
     served.synthesize(texts, speed=SYNC_SPEED)    # first-use set-up
     torch.cuda.synchronize()
     hopper.reset_launches()
@@ -885,12 +1089,17 @@ def run_slice(torch, np, hopper, root: str):
     if missing:
         raise RuntimeError(f"kernels not launched at speed "
                            f"{SYNC_SPEED}: {missing}")
+    equal_outputs(np, [outs], [ways["eager"].synthesize(
+        texts, speed=SYNC_SPEED)], f"speed {SYNC_SPEED}: graph vs eager")
     audio = sum(o.shape[0] for o in outs) / SAMPLE_RATE
     res["0.5"] = {"speed": SYNC_SPEED, "sentences": len(texts),
-                  "oracle_max_abs_diff": worst, "launches": launches,
-                  "wall_s": wall, "audio_s": audio,
+                  "oracle_max_abs_diff": worst, "graph_equals_eager": True,
+                  "launches": launches, "wall_s": wall, "audio_s": audio,
                   "audio_s_per_wall_s": audio / wall}
     say("synthesize_sync", res["0.5"])
+    res["memory"] = dict(graph_memory(torch, served, ways["eager"]),
+                         served_captures=captures(served))
+    say("graph_memory", res["memory"])
     return res, served, outputs
 
 
@@ -1110,36 +1319,20 @@ def check_cross_device(torch, np, hopper) -> dict:
 def split_streams(torch, np, hopper, ways, want, speed: float,
                   kernels: list) -> dict:
     """stream() over N_BATCHES batches at one speed through each
-    BatchSynthesizer of `ways` (the unsplit served one and the meshes),
-    in turns, timed as serve() times them; every output equals `want`
-    (phase 5's served stream) bit for bit. Launch counts, each shard's
-    host enqueue ms (the core's launches, pack_rows, encode) and peak
-    memory per device are those of each way's last 3-batch stream,
-    where every kernel in `kernels` must have launched."""
-    texts = TEXTS * BATCH_MULT
+    BatchSynthesizer of `ways` (the unsplit served one, and per mesh its
+    graphs with the codec on and off and its eager twin), in turns, timed
+    as serve() times them; every output equals `want` (phase 5's eager
+    stream, equal to its graphs) bit for bit. Launch counts, each shard's
+    host enqueue ms (staging and the replay or the eager launches, pack,
+    encode) and peak memory per device are those of each way's last
+    3-batch stream, where every kernel in `kernels` must have
+    launched."""
     enqueue = {k: [] for k in ways}
-
-    def timed_enqueue(bs, key):
-        run = bs._enqueue_shard
-
-        def call(*args):
-            t0 = time.perf_counter()
-            out = run(*args)
-            enqueue[key].append(time.perf_counter() - t0)
-            return out
-        return call
-
-    def timed_stream(bs, n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = list(bs.stream((texts for _ in range(n)), speed=speed))
-        return got, time.perf_counter() - t0
-
     for key, bs in ways.items():
-        bs._enqueue_shard = timed_enqueue(bs, key)
+        timed_method(bs, "_enqueue_shard", enqueue[key])
     try:
         for bs in ways.values():
-            timed_stream(bs, 1)                  # first-use set-up
+            stream_of(torch, bs, N_BATCHES, speed)    # first-use set-up
         walls = {k: ([], []) for k in ways}
         got, launches, peak = {}, {}, {}
         for rep in range(SPLIT_REPEATS):
@@ -1147,13 +1340,13 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
             for key in (ways if rep % 2 == 0 else list(ways)[::-1]):
                 bs = ways[key]
                 devs = sorted({s.device for s in bs.shards}, key=str)
-                walls[key][0].append(timed_stream(bs, 1)[1])
+                walls[key][0].append(stream_of(torch, bs, 1, speed)[1])
                 if last:
                     for d in devs:
                         torch.cuda.reset_peak_memory_stats(d)
                     enqueue[key].clear()
                     hopper.reset_launches()
-                got[key], wall = timed_stream(bs, N_BATCHES)
+                got[key], wall = stream_of(torch, bs, N_BATCHES, speed)
                 walls[key][1].append(wall)
                 if last:
                     launches[key] = hopper.launch_counts()
@@ -1164,14 +1357,10 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
             del bs._enqueue_shard
 
     res = {"speed": speed, "batches": N_BATCHES,
-           "sentences_per_batch": len(texts)}
+           "sentences_per_batch": len(batch_texts(0))}
     for key, bs in ways.items():
-        for b, (outs, ref) in enumerate(zip(got[key], want)):
-            if len(outs) != len(ref) or any(
-                    o.dtype != r.dtype or not np.array_equal(o, r)
-                    for o, r in zip(outs, ref)):
-                raise RuntimeError(f"{key} at {speed}: batch {b} differs "
-                                   "from the unsplit served stream")
+        equal_outputs(np, got[key], want,
+                      f"{key} at {speed} vs the unsplit eager stream")
         missing = [k for k in kernels if launches[key][k] <= 0]
         if missing:
             raise RuntimeError(f"{key} at {speed}: kernels not launched: "
@@ -1186,7 +1375,8 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
                      for i in range(size)]
         res[key] = {
             "shards": [str(s.device) for s in bs.shards],
-            "equal_to_unsplit_served": True,
+            "graph": "eager" not in key,
+            "equal_to_unsplit_eager": True,
             "launches": launches[key],
             "stream_1_batch_s": w1, "stream_3_batches_s": wn,
             "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
@@ -1210,7 +1400,7 @@ def run_exchange(np, root: str, dbp: str, want: list) -> dict:
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
-    texts = TEXTS * BATCH_MULT
+    texts = batch_texts(0)
     outp = os.path.join(root, "exchange.npz")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -1309,10 +1499,14 @@ def run_multi_device(torch, np, hopper, root: str, served,
               "mesh_cuda0_x2": make_mesh([cuda0, cuda0])}
     ways = {"unsplit": served}
     for key, mesh in meshes.items():
-        ways[key] = BatchSynthesizer(served.db, served.config, mesh=mesh,
-                                     dims_floor=FLOOR)
+        def make(**kw):
+            return BatchSynthesizer(served.db, served.config, mesh=mesh,
+                                    dims_floor=FLOOR, **kw)
+        ways[key] = make()
         if not ways[key].wire:
             raise RuntimeError(f"{key}: the wire codec is off")
+        ways[key + "_plain"] = make(wire=False)
+        ways[key + "_eager"] = eager_twin(make())
     names = [m.KERNEL for m in hopper.MODULES]
     res["1.0"] = split_streams(torch, np, hopper, ways, outputs[1.0], 1.0,
                                [n for n in names if n != "wsola_frames"])

@@ -126,4 +126,10 @@ class CTTSEngine:
         self.config.fade_out_ms = fade_out_ms
 
     def close(self) -> None:
+        """Close the voice database and drop the batch path's graphs."""
+        if self._batcher is not None:
+            from ctts_tpu_torch.synth.compiled import release_compiled
+
+            for shard in self._batcher.shards:
+                release_compiled(shard.core)
         self.db.close()

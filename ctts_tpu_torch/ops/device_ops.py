@@ -204,6 +204,55 @@ def move_segments(buf: torch.Tensor, starts: torch.Tensor, dst: torch.Tensor,
     return buf.gather(1, src[:, :W])
 
 
+FR, HOP = 256, 128   # contour frame and hop (ctts.c:2206-2273)
+
+
+def _frame_contribs(read, pos, count, active, f_start, f_end):
+    """The Hann-windowed, resampled contour frames at positions pos [N]
+    of segments with the given count, active flag and pitch factors
+    [N]: (contrib, normc) [N, FR], zero for the frames that do not run.
+    read(rel) gives the samples at segment positions rel and rel + 1."""
+    hann256 = hann(FR, pos.device)
+    denom = (count - FR).to(F32)
+    inv_count = torch.where(denom != 0, 1.0 / denom, float("inf"))
+    frame_ok = (pos + FR <= count) & active
+    t = pos.to(F32) * inv_count
+    smooth_t = t * t * (3.0 - 2.0 * t)
+    pf = f_start + (f_end - f_start) * smooth_t
+
+    i = torch.arange(FR, device=pos.device)
+    src = i.to(F32)[None, :] * pf[:, None]                         # [N, FR]
+    idx = src.to(torch.int32)
+    frac = src - idx.to(F32)
+    in_range = idx + 1 < FR
+    rel = pos[:, None] + idx
+    a, b = read(rel)
+    a = torch.where(rel < count[:, None], a, 0.0)
+    sample = torch.where(in_range, a * (1.0 - frac) + b * frac, a)
+    contrib = torch.where(frame_ok[:, None], trunc16(sample * hann256), 0.0)
+    normc = torch.where(frame_ok[:, None], hann256, 0.0)
+    return contrib, normc
+
+
+def _ola(x: torch.Tensor) -> torch.Tensor:
+    """50%-overlap OLA of frames x [n, K, FR] at hop HOP: block m of 128
+    gets frame m's first half plus frame m-1's second half (at most two
+    adds, so order is moot) -> [n, (K+1)*HOP]."""
+    n, K = x.shape[:2]
+    acc = torch.zeros(n, K + 1, HOP, dtype=F32, device=x.device)
+    acc[:, :K] = x[:, :, :HOP]
+    acc[:, 1:] = acc[:, 1:] + x[:, :, HOP:]
+    return acc.reshape(n, (K + 1) * HOP)
+
+
+def _ola_values(contrib, normc):
+    """(normalized values, good mask) of the OLA of frames [n, K, FR]."""
+    acc = wrap16(_ola(contrib))
+    norm = _ola(normc)
+    good = norm > 0.01
+    return q16(acc / torch.where(good, norm, 1.0)), good
+
+
 def contour_segment(content: torch.Tensor, seg_off: torch.Tensor,
                     count: torch.Tensor, f_start: torch.Tensor,
                     f_end: torch.Tensor, max_frames: int) -> torch.Tensor:
@@ -216,53 +265,31 @@ def contour_segment(content: torch.Tensor, seg_off: torch.Tensor,
     handling of the reference's heap overread, ctts.c:2251)."""
     n, W = content.shape
     dev = content.device
-    FR, HOP, K = 256, 128, max_frames
-    hann256 = hann(FR, dev)
+    K = max_frames
     count = count.long()
     seg_off = seg_off.long()
-
     active = (count >= 100) & (torch.abs(f_start - f_end) >= 0.01)
-    denom = (count - FR).to(F32)
-    inv_count = torch.where(denom != 0, 1.0 / denom, float("inf"))
-    pos = torch.arange(K, device=dev) * HOP                       # [K]
-    frame_ok = (pos[None, :] + FR <= count[:, None]) & active[:, None]
-    t = pos.to(F32)[None, :] * inv_count[:, None]
-    smooth_t = t * t * (3.0 - 2.0 * t)
-    pf = f_start[:, None] + (f_end - f_start)[:, None] * smooth_t  # [n, K]
+    pos = (torch.arange(K, device=dev) * HOP).expand(n, K).reshape(-1)
 
-    i = torch.arange(FR, device=dev)
-    src = i.to(F32)[None, None, :] * pf[:, :, None]               # [n,K,FR]
-    idx = src.to(torch.int32)
-    frac = src - idx.to(F32)
-    in_range = idx + 1 < FR
-    rel = pos[None, :, None] + idx                                # [n,K,FR]
+    def rows(v):
+        return v[:, None].expand(n, K).reshape(-1)
+
     ext = torch.cat([content, torch.zeros(n, K * HOP + 4 * HOP, dtype=F32,
-                                          device=dev)], dim=1)
-    # Frames that fail frame_ok can index anywhere (pf is unbounded
-    # there); their lanes are masked below, so clamp their reads.
-    at = torch.clamp(seg_off[:, None, None] + rel, 0,
-                     ext.shape[1] - 2).reshape(n, -1)
-    a = ext.gather(1, at).reshape(n, K, FR)
-    b = ext.gather(1, at + 1).reshape(n, K, FR)
-    a = torch.where(rel < count[:, None, None], a, 0.0)
-    sample = torch.where(in_range, a * (1.0 - frac) + b * frac, a)
+                                          device=dev)], dim=1).reshape(-1)
+    # Frames that do not run can index anywhere (pf is unbounded there);
+    # their lanes are masked, so clamp their reads to their own row.
+    base = torch.arange(n, device=dev) * (W + K * HOP + 4 * HOP)
+    span = W + K * HOP + 4 * HOP - 2
 
-    contrib = trunc16(sample * hann256)
-    contrib = torch.where(frame_ok[:, :, None], contrib, 0.0)
-    normc = torch.where(frame_ok[:, :, None], hann256, 0.0)
+    def read(rel):
+        at = rows(base)[:, None] + torch.clamp(
+            rows(seg_off)[:, None] + rel, 0, span)
+        return ext[at], ext[at + 1]
 
-    # 50%-overlap OLA: block m of 128 gets frame m's first half plus
-    # frame m-1's second half (at most two adds, so order is moot).
-    def ola(x):
-        acc = torch.zeros(n, K + 1, HOP, dtype=F32, device=dev)
-        acc[:, :K] = x[:, :, :HOP]
-        acc[:, 1:] = acc[:, 1:] + x[:, :, HOP:]
-        return acc.reshape(n, (K + 1) * HOP)
-
-    acc = wrap16(ola(contrib))
-    norm = ola(normc)
-    good = norm > 0.01
-    val = q16(acc / torch.where(good, norm, 1.0))
+    contrib, normc = _frame_contribs(read, pos, rows(count), rows(active),
+                                     rows(f_start), rows(f_end))
+    val, good = _ola_values(contrib.reshape(n, K, FR),
+                            normc.reshape(n, K, FR))
 
     # Merge back at seg_off under (j < count) & active & good.
     j = torch.arange(W, device=dev)[None, :] - seg_off[:, None]
@@ -272,11 +299,97 @@ def contour_segment(content: torch.Tensor, seg_off: torch.Tensor,
     return torch.where(m, val.gather(1, jc), content)
 
 
+def zone_slots(smax: int, segments: int) -> int:
+    """Frame slots of one sentence's contour workspace: a segment of
+    count samples takes ceil(count / HOP) of them, and the counts of a
+    sentence's segments sum to at most its length, SMAX."""
+    return smax // HOP + segments + 4
+
+
+def contour_zones(rows: torch.Tensor, margin: int, region: torch.Tensor,
+                  seg_off: torch.Tensor, count: torch.Tensor,
+                  f_start: torch.Tensor, f_end: torch.Tensor,
+                  K: int) -> torch.Tensor:
+    """contour_segment over S segments of each sentence at once, in
+    place: rows [B, R, WREG] hold the region rows (content at `margin`);
+    segment s of sentence b is content[seg_off : seg_off+count) of row
+    region[b, s], with pitch factors f_start -> f_end (all [B, S]).
+
+    What ctts_tpu/synth/device.py:1324-1565 computes, with every shape
+    fixed by (B, S, K): each active segment's frames go to a zone of
+    consecutive slots of the sentence's K-slot workspace (ceil(count /
+    HOP) slots: they cover its count samples, and the frame of the last
+    one never runs, since its pos + FR > count, so no OLA block mixes
+    two zones), the frames are resampled and overlap-added
+    there, and the values are written back under contour_segment's
+    (j < count) & active & good mask. Every read of a frame that runs
+    stays inside its segment, so segments of one row whose ranges do
+    not overlap (the rise and the interrogative fall) read the content
+    as it was and may run together. Needs, per sentence, the sum of the
+    active segments' ceil(count / HOP) to be at most K (zone_slots)."""
+    B, R, WREG = rows.shape
+    S = region.shape[1]
+    dev = rows.device
+    flat = rows.view(-1)
+    count = count.long()
+    active = (count >= 100) & (torch.abs(f_start - f_end) >= 0.01)
+    slots = torch.where(active, (count + HOP - 1) // HOP, 0)
+    zend = torch.cumsum(slots, 1)
+    zoff = zend - slots
+    base = ((torch.arange(B, device=dev)[:, None] * R + region.long())
+            * WREG + margin + seg_off.long())                     # [B, S]
+
+    # The segment of each slot (of each OLA block: K + 1 of them); S
+    # where the slot lies past the last zone.
+    blk = torch.arange(K + 1, device=dev).expand(B, K + 1).contiguous()
+    seg = torch.searchsorted(zend, blk, right=True)
+    in_zone = seg < S
+    segc = torch.clamp(seg, max=S - 1)
+
+    def at_slot(v):
+        return v.gather(1, segc)
+
+    local = (blk - at_slot(zoff)) * HOP            # block's segment position
+    cnt = torch.where(in_zone, at_slot(count), 0)
+    act = in_zone & at_slot(active)
+    top = flat.shape[0] - 2
+
+    def slots_of(v):
+        return v[:, :K].reshape(-1)
+
+    fbase = slots_of(at_slot(base))
+
+    def read(rel):
+        at = torch.clamp(fbase[:, None] + rel, 0, top)
+        return flat[at], flat[at + 1]
+
+    contrib, normc = _frame_contribs(
+        read, slots_of(local), slots_of(cnt), slots_of(act),
+        slots_of(at_slot(f_start)), slots_of(at_slot(f_end)))
+    val, good = _ola_values(contrib.reshape(B, K, FR),
+                            normc.reshape(B, K, FR))
+
+    # Write back every OLA position of a zone under the merge mask;
+    # masked lanes write back the value already at a margin sample of
+    # the sentence's first row, which no lane changes.
+    jr = local[:, :, None] + torch.arange(HOP, device=dev)      # [B, K+1, HOP]
+    m = ((jr < cnt[:, :, None]) & act[:, :, None]
+         & good.reshape(B, K + 1, HOP))
+    dummy = torch.arange(B, device=dev) * (R * WREG)
+    tgt = torch.where(m, at_slot(base)[:, :, None] + jr,
+                      dummy[:, None, None])
+    keep = flat[dummy][:, None, None]
+    flat.scatter_(0, tgt.reshape(-1),
+                  torch.where(m, val.reshape(B, K + 1, HOP), keep).reshape(-1))
+    return rows
+
+
 def tail_fade_window(buf: torch.Tensor, end: torch.Tensor,
                      fade_len: torch.Tensor, W2: int) -> torch.Tensor:
     """apply_fade_out on buf[..end) with the lookup confined to the
     W2-wide window ending at `end` (ctts.c:3028-3039);
-    ctts_tpu/ops/device_ops.py:756. buf [n, W], end and fade_len [n]."""
+    ctts_tpu/ops/device_ops.py:756. buf [n, W], end and fade_len [n];
+    buf is updated in place (a row with fade_len 0 keeps its values)."""
     n, W = buf.shape
     i2 = torch.arange(W2, device=buf.device)
     end = end.long()
@@ -291,4 +404,4 @@ def tail_fade_window(buf: torch.Tensor, end: torch.Tensor,
     faded = trunc16(win * sine_fade_gain(t))
     in_fade = ((ia >= start[:, None]) & (ia < end[:, None])
                & (fade[:, None] > 0))
-    return buf.scatter(1, ia, torch.where(in_fade, faded, win))
+    return buf.scatter_(1, ia, torch.where(in_fade, faded, win))

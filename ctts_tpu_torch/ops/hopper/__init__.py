@@ -5,10 +5,14 @@ compact and assemble on every path, wsola (both WSOLA kernels) on the
 speed != 1.0 path. Each holds the wrapper (the CUDA kernel for a CUDA
 tensor, the plain PyTorch version for a CPU tensor), the plain version
 itself or its import, and a launch counter that only a kernel launch
-increments.
+increments. Under CUDA graph capture a launch is recorded, not run:
+recorded_launches takes such counts back, and each replay of the graph
+adds them (synth/compiled.py).
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 from ctts_tpu_torch.ops.hopper import (
     assemble,
@@ -28,3 +32,24 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {m.KERNEL: m.launches for m in MODULES}
+
+
+def add_launches(counts: dict) -> None:
+    for m in MODULES:
+        m.launches += counts.get(m.KERNEL, 0)
+
+
+@contextmanager
+def recorded_launches():
+    """Yields a dict that receives, on exit, the launches the enclosed
+    calls counted (those a graph capture records); the counters are set
+    back to their values on entry."""
+    before = launch_counts()
+    recorded: dict = {}
+    try:
+        yield recorded
+    finally:
+        after = launch_counts()
+        for m in MODULES:
+            m.launches = before[m.KERNEL]
+        recorded.update({k: after[k] - before[k] for k in after})

@@ -32,10 +32,17 @@ another from the calling thread, and the forward path calls no
 collective. Without a mesh the batch is one shard on one device, which
 is the unsplit path: the same calls as before the split existed.
 
-The JAX module's `_no_persistent_cache` and `release_compiled`
-(ctts_tpu/parallel/batch.py:149-199) work around XLA:CPU (a crash while
-serializing a shard_map executable; a crash once many executables are
-resident) and have no counterpart: eager PyTorch compiles nothing.
+Each shard runs the compiled batch core of synth/compiled.py, the
+counterpart of `_compiled_batch_core` (ctts_tpu/parallel/batch.py:
+36-146): on a CUDA device a graph captured once per signature (bucket
+dims, rows per shard, shared-table lengths, refine depth, wire flag) and
+replayed for every later batch, its outputs copied out of the graph's
+memory right after the replay, so that the next batch's replay cannot
+overwrite a payload the copy stream is still reading; on the CPU the
+same core eagerly. Shards on one device share its core and so its
+graphs. `release_compiled` (synth/compiled.py) drops the graphs, as the
+JAX module's drops its executables; its `_no_persistent_cache` works
+around an XLA:CPU crash and has no counterpart.
 """
 
 from __future__ import annotations
@@ -55,6 +62,11 @@ from ctts_tpu_torch.ops import wire as wire_codec
 from ctts_tpu_torch.parallel.mesh import first_device
 from ctts_tpu_torch.plan.compiler import compile_plan
 from ctts_tpu_torch.plan.split import split_plan
+from ctts_tpu_torch.synth import compiled
+from ctts_tpu_torch.synth.compiled import (  # noqa: F401 (re-exported)
+    pack_rows,
+    release_compiled,
+)
 from ctts_tpu_torch.synth.device import (
     DeviceVoice,
     SynthesisCore,
@@ -78,20 +90,6 @@ def _next_batch_size(n: int, multiple: int) -> int:
     return max(-(-n // g) * g, g)
 
 
-def pack_rows(out: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
-    """Valid prefixes of out [B, OM] packed back to back into one flat
-    buffer (ctts_tpu/parallel/batch.py:75-100): cumsum offsets and one
-    index scatter; lanes past a row's length go to a dropped slot."""
-    B, OM = out.shape
-    lens = out_lens.long()
-    offs = torch.cumsum(lens, 0) - lens
-    iw = torch.arange(OM, device=out.device)
-    tgt = torch.where(iw[None, :] < lens[:, None], offs[:, None] + iw, B * OM)
-    packed = torch.zeros(B * OM + 1, dtype=out.dtype, device=out.device)
-    packed.scatter_(0, tgt.reshape(-1), out.reshape(-1))
-    return packed[:B * OM]
-
-
 def on_device(device: torch.device):
     """Make a CUDA `device` current for the enclosed calls (nothing for
     the CPU)."""
@@ -113,6 +111,10 @@ class Shard(NamedTuple):
 class BatchSynthesizer:
     """High-throughput batched synthesis on one device, or with its rows
     split over a device mesh."""
+
+    # Runs one shard's rows: the compiled batch core (a CUDA graph per
+    # signature on a card).
+    _run_core = staticmethod(compiled.run_batch)
 
     def __init__(
         self,
@@ -327,15 +329,8 @@ class BatchSynthesizer:
         encode, all on the shard's device: (payload, classes or None,
         out_lens, ovf)."""
         with on_device(shard.device):
-            out, out_lens, ovf = shard.core(dims, arrays, shared)
-            packed = pack_rows(out, out_lens)
-            if not self.wire:
-                return packed, None, out_lens, ovf
-            pad = -packed.shape[0] % wire_codec.WIRE_BLOCK
-            if pad:
-                packed = torch.cat([packed, packed.new_zeros(pad)])
-            words, classes = wire_codec.encode(packed)
-        return words, classes, out_lens, ovf
+            return self._run_core(shard.core, dims, arrays, shared,
+                                  self.wire)
 
     def _trim(self, enqueued):
         n_rows, per_bucket = enqueued
@@ -348,7 +343,10 @@ class BatchSynthesizer:
         bucket's overflow once; then start copying the valid prefix of
         the shard's packed buffer (or of its wire words) to pinned host
         memory on the shard's copy stream, so that the copy runs beside
-        the next batch's compute. Shards past the n real rows hold pad
+        the next batch's compute. On a card the payload is the copy that
+        the replay made of its graph's output, not the output itself,
+        so the next batch's replay of the same graph cannot overwrite it
+        while it is being read. Shards past the n real rows hold pad
         rows only and are not copied. Returns, per shard with real rows,
         (host buffer, copy event or None, classes or None, row ends)."""
         n, rows, handles = handle

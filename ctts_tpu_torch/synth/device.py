@@ -9,6 +9,15 @@ JAX scans and while-loops are Python loops over batched tensors. The
 Pallas kernels of the path are the Hopper kernels of ops/hopper (on a
 CPU device their plain versions run).
 
+The core is shape-static, as a traced JAX function is: `stage_inputs`
+uploads a batch's host arrays first (one byte buffer, one copy), and
+`SynthesisCore.forward` then launches a sequence of ops whose shapes
+depend only on the bucket dims, the batch size, the shared-table
+lengths and the static refine depth, never on the values in the
+arrays, and reads nothing back to the host. So synth/compiled.py can
+capture it once per signature as a CUDA graph and replay it, the
+counterpart of the JAX package's compiled programs.
+
 Stage order (JAX line numbers): prepare_base and the DC/fade chain of
 make_contrib_fn (761-918); head pitch (1070-1084); the refine loop of
 compose + boundary_heads (920-1030, 1212-1223); the final compose
@@ -116,12 +125,73 @@ class DeviceVoice:
         return voice
 
 
-def _upload(v: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array to the device without a stream sync (pinned copy)."""
-    t = torch.from_numpy(np.ascontiguousarray(v))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+class Staging:
+    """Where each host array of a batch lies in one byte buffer: every
+    array at an offset aligned to ALIGN bytes, in the order given. The
+    layout (names, dtypes, shapes) is part of a compiled core's
+    signature; `pack` fills a buffer, `views` reads typed tensors from
+    a buffer of the same layout on any device."""
+
+    ALIGN = 64
+
+    def __init__(self, arrays: dict):
+        fields, off = [], 0
+        for name, v in arrays.items():
+            a = np.asarray(v)
+            fields.append((name, a.dtype, a.shape, off))
+            off += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        self.fields = tuple(fields)
+        self.nbytes = max(off, self.ALIGN)
+
+    def key(self) -> tuple:
+        return tuple((name, dt.str, shape)
+                     for name, dt, shape, _ in self.fields)
+
+    def pack(self, arrays: dict, out: np.ndarray) -> None:
+        """Copy each array into out (uint8 [nbytes]) at its offset."""
+        for name, dt, shape, off in self.fields:
+            a = np.asarray(arrays[name])
+            if a.dtype != dt or a.shape != shape:
+                raise ValueError(f"staging {name}: {a.dtype} {a.shape}, "
+                                 f"layout {dt} {shape}")
+            out[off:off + a.nbytes] = np.ascontiguousarray(a).reshape(
+                -1).view(np.uint8)
+
+    def views(self, buf: torch.Tensor) -> dict:
+        """Typed views of a staged byte buffer, one per array."""
+        out = {}
+        for name, dt, shape, off in self.fields:
+            tdt = torch.from_numpy(np.empty(0, dt)).dtype
+            n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+            out[name] = buf[off:off + n].view(tdt).view(shape)
+        return out
+
+
+def stage_inputs(arrays: dict, device: torch.device) -> dict:
+    """Upload a batch's host arrays with one copy: pack them into one
+    byte buffer (pinned on a CUDA device, so the copy does not wait for
+    the stream) and return typed views of its device copy."""
+    layout = Staging(arrays)
+    pinned = device.type == "cuda"
+    host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=pinned)
+    layout.pack(arrays, host.numpy())
+    return layout.views(host.to(device, non_blocking=pinned))
+
+
+def refine_depth(arrays: dict) -> int:
+    """The batch's static refine depth: the trips of its deepest row."""
+    return int(np.max(arrays["refine_trips"], initial=0))
+
+
+def check_zone_capacity(dims: PlanDims, arrays: dict) -> None:
+    """The contour workspace holds a sentence's segments when its
+    regions' lengths sum to at most SMAX (dops.zone_slots); the
+    lowering guarantees it, and a batch that breaks it is refused."""
+    total = np.asarray(arrays["region_len"]).reshape(
+        np.shape(arrays["region_len"])[0], -1).astype(np.int64).sum(1)
+    if total.size and int(total.max()) > dims.SMAX:
+        raise ValueError(f"a row's regions hold {int(total.max())} samples, "
+                         f"more than SMAX {dims.SMAX}")
 
 
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -131,15 +201,17 @@ def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
 class SynthesisCore(nn.Module):
     """The synthesis core over a batch of lowered plans.
 
-    forward(dims, arrays, shared) takes the batch-stacked host arrays of
-    fill_device_plan / the native lowerer ([B, ...] numpy) and the
-    batch-global value tables of shared_plan_values, uploads them, and
-    returns (out [B, OMAX] int16, out_len [B] i32, ovf [B] i32) on the
-    voice's device (OMAX = SMAX unless the bucket stretches), all
-    enqueued without a host sync. Control that the JAX core derives on
-    the device but that only depends on the plan (refine trip count,
-    which regions carry DSP, qfinal or tail fades) is read from the
-    host arrays instead."""
+    forward(dims, ar, trips) takes the staged tensors of stage_inputs
+    (the batch-stacked arrays of fill_device_plan / the native lowerer,
+    [B, ...], and the batch-global value tables of shared_plan_values)
+    and the batch's static refine depth, and returns (out [B, OMAX]
+    int16, out_len [B] i32, ovf [B] i32) on the voice's device (OMAX =
+    SMAX unless the bucket stretches). What it launches depends only on
+    the shapes of `ar`, on dims and on trips: every row runs the refine
+    loop `trips` times (its own trip count through a select, as the
+    vmapped while_loop's), every fade slot and every region run, and the
+    rows that carry a contour or an energy ramp are masked or packed
+    into zones on the device. Nothing reads back to the host."""
 
     def __init__(self, voice: DeviceVoice):
         super().__init__()
@@ -149,14 +221,11 @@ class SynthesisCore(nn.Module):
         self.ubuf = voice.ubuf
 
     @torch.no_grad()
-    def forward(self, dims: PlanDims, arrays: dict, shared: dict):
+    def forward(self, dims: PlanDims, ar: dict, trips: int):
         if not dims.compose_refine:
             raise NotImplementedError(
                 "only the refine compose (compose_refine=True) is ported")
-        dev = self.bank.device
-        ar = {k: _upload(v, dev) for k, v in arrays.items()}
-        ar.update({k: _upload(v, dev) for k, v in shared.items()})
-
+        ar = dict(ar)
         uid = ar["unit_id"].long()
         ar["_active"] = uid >= 0
         ar["_uid"] = torch.clamp(uid, min=0)
@@ -171,21 +240,21 @@ class SynthesisCore(nn.Module):
         # the exported analysis windows; a row stops updating once its
         # own trip count is reached (the vmapped while_loop's select).
         heads = base[:, :, :dims.CFMAX]
-        trips = ar["refine_trips"].long()
-        for it in range(int(np.max(arrays["refine_trips"], initial=0))):
+        row_trips = ar["refine_trips"].long()
+        for it in range(trips):
             _, seg, tail = self._compose(dims, ar, contrib_fn(heads), fo,
                                          True)
             new = self._boundary_heads(dims, ar, base, seg, tail)
-            heads = torch.where((it < trips)[:, None, None], new, heads)
+            heads = torch.where((it < row_trips)[:, None, None], new, heads)
         bufs, _, _ = self._compose(dims, ar, contrib_fn(heads), fo, False)
 
-        bufs = self._tail_fades(dims, ar, arrays, bufs)
+        bufs = self._tail_fades(dims, ar, bufs)
         starts, dst, seg_lens, comp_lens, ovf = self._seg_tables(
             dims, ar, bufs)
         bufs = compact(bufs, starts, dst, seg_lens, dims.WREG)
         bufs = bufs.reshape(-1, dims.R, dims.WREG)
-        bufs = self._contour(dims, ar, arrays, bufs, comp_lens)
-        bufs = self._region_post(dims, ar, arrays, bufs, comp_lens)
+        bufs = self._contour(dims, ar, bufs, comp_lens)
+        bufs = self._region_post(dims, ar, bufs, comp_lens)
         out, out_len = self._assemble(dims, ar, bufs, comp_lens)
         if dims.stretch:
             out, out_len = time_stretch(out, out_len, ar["speed"], dims.OMAX,
@@ -372,27 +441,26 @@ class SynthesisCore(nn.Module):
 
     # -- in-region tail fades (device.py:1238-1268) -------------------------
 
-    def _tail_fades(self, dims, ar, arrays, bufs):
-        """Punctuation fades as FADEW-wide window patches, in slot order."""
-        flat = bufs
-        jf = torch.arange(dims.FADEW, device=flat.device)
+    def _tail_fades(self, dims, ar, bufs):
+        """Punctuation fades as FADEW-wide window patches, in slot order,
+        in place. An unused slot (fade_pos < 0, fade_len 0) writes its
+        window back unchanged."""
+        jf = torch.arange(dims.FADEW, device=bufs.device)
         for k in range(dims.FD):
-            if not (arrays["fade_pos"][:, k] >= 0).any():
-                continue
             fpos = ar["fade_pos"][:, k].long()
             pos = dims.MARGIN + torch.clamp(fpos, min=0)
             flen = torch.minimum(ar["fade_len"][:, k].long(), pos)
             foff = ar["fade_region"][:, k].long() * dims.WREG + pos - dims.FADEW
             idx = foff[:, None] + jf
-            win = flat.gather(1, idx)
+            win = bufs.gather(1, idx)
             rel = (jf[None, :] - (dims.FADEW - flen[:, None])).to(F32)
             t = (flen.to(F32)[:, None] - rel) * (
                 1.0 / torch.clamp(flen, min=1).to(F32))[:, None]
             live = (fpos >= 0) & (flen > 0)
             in_fade = (jf[None, :] >= dims.FADEW - flen[:, None]) & live[:, None]
-            flat = flat.scatter(1, idx, torch.where(
+            bufs.scatter_(1, idx, torch.where(
                 in_fade, trunc16(win * sine_fade_gain(t)), win))
-        return flat
+        return bufs
 
     # -- silence tables (device.py:1272-1300) -------------------------------
 
@@ -421,72 +489,60 @@ class SynthesisCore(nn.Module):
 
     # -- contour + interrogative fall (device.py:1324-1565) -----------------
 
-    def _contour(self, dims, ar, arrays, bufs, comp_lens):
+    def _contour(self, dims, ar, bufs, comp_lens):
         """Phrase-intonation pitch contour on each DSP region's content
-        (the rise segment of a split question), then the interrogative
-        fall on the question-final regions."""
-        B, R, M, W = bufs.shape[0], dims.R, dims.MARGIN, dims.CONTW
-        max_frames = max((W - 256) // 128 + 2, 1)
-        rows = bufs.reshape(B * R, dims.WREG)
-        contour = ar["region_contour"].reshape(B * R, 5)
-        lens = comp_lens.reshape(-1)
-        qfinal = ar["region_qfinal"].reshape(-1)
+        (the rise segment of a split question), and the interrogative
+        fall on the question-final regions, in one pass of zones on the
+        device (dops.contour_zones): per region, segment 0 is the
+        contour and segment 1 the fall; a segment of a region that does
+        not carry it gets count 0 and no slots."""
+        B, R = bufs.shape[0], dims.R
+        cnt = comp_lens.long()
+        c = ar["region_contour"]
+        qfinal = ar["region_qfinal"]
+        do_dsp = ar["region_do_dsp"]
+        rise = (cnt.to(F32) * 0.6).to(torch.int64)
+        split = (rise > 100) & (cnt - rise > 100)
+        split1 = qfinal & split
+        fall = qfinal & do_dsp & ar["region_active"]
+        zero = torch.zeros_like(cnt)
+        region = torch.arange(R, device=bufs.device).expand(B, R)
 
-        sel = np.flatnonzero(arrays["region_do_dsp"].reshape(-1))
-        if sel.size:
-            idx = torch.as_tensor(sel, device=bufs.device)
-            cnt = lens[idx]
-            c = contour[idx]
-            rise = (cnt.to(F32) * 0.6).to(torch.int64)
-            split = qfinal[idx] & (rise > 100) & (cnt - rise > 100)
-            new = dops.contour_segment(
-                rows[idx, M:M + W], torch.zeros_like(cnt),
-                torch.where(split, rise, cnt), c[:, 0],
-                torch.where(split, c[:, 2], c[:, 1]), max_frames)
-            rows[idx, M:M + W] = new
+        def pair(a, b):        # [B, R] x 2 -> [B, 2R], region-major
+            return torch.stack([a, b], 2).reshape(B, 2 * R)
 
-        qf = (arrays["region_qfinal"] & arrays["region_do_dsp"]
-              & arrays["region_active"]).reshape(-1)
-        sel = np.flatnonzero(qf)
-        if sel.size:
-            idx = torch.as_tensor(sel, device=bufs.device)
-            cnt = lens[idx]
-            c = contour[idx]
-            rise = (cnt.to(F32) * 0.6).to(torch.int64)
-            split = (rise > 100) & (cnt - rise > 100)
-            new = dops.contour_segment(
-                rows[idx, M:M + W], rise, torch.where(split, cnt - rise, 0),
-                c[:, 2], c[:, 1], max_frames)
-            rows[idx, M:M + W] = new
-        return rows.reshape(B, R, dims.WREG)
+        return dops.contour_zones(
+            bufs, dims.MARGIN, pair(region, region), pair(zero, rise),
+            pair(torch.where(do_dsp, torch.where(split1, rise, cnt), 0),
+                 torch.where(fall & split, cnt - rise, 0)),
+            pair(c[..., 0], c[..., 2]),
+            pair(torch.where(split1, c[..., 2], c[..., 1]), c[..., 1]),
+            dops.zone_slots(dims.SMAX, 2 * R))
 
     # -- region_post (device.py:1567-1593) ----------------------------------
 
-    def _region_post(self, dims, ar, arrays, bufs, comp_lens):
-        """Energy ramp (ctts.c:2841-2865) and the region tail fade."""
-        B, R, M, W = bufs.shape[0], dims.R, dims.MARGIN, dims.CONTW
-        rows = bufs.reshape(B * R, dims.WREG)
+    def _region_post(self, dims, ar, bufs, comp_lens):
+        """Energy ramp (ctts.c:2841-2865) and the region tail fade on
+        every region row, masked as the JAX package's vmapped
+        region_post: rows without an energy ramp keep their content, and
+        a row with fade_after 0 writes its window back unchanged."""
+        M, W = dims.MARGIN, dims.CONTW
+        rows = bufs.reshape(-1, dims.WREG)
         lens = comp_lens.reshape(-1)
-        sel = np.flatnonzero((arrays["region_do_dsp"]
-                              & arrays["region_energy"]).reshape(-1))
-        if sel.size:
-            idx = torch.as_tensor(sel, device=bufs.device)
-            cnt = lens[idx][:, None]
-            c = ar["region_contour"].reshape(B * R, 5)[idx]
-            es, ee = c[:, 3:4], c[:, 4:5]
-            content = rows[idx, M:M + W]
-            ic = torch.arange(W, device=bufs.device)
-            te = ic.to(F32)[None, :] / torch.clamp(cnt - 1, min=1).to(F32)
-            ramped = q16(content * (es + (ee - es) * te))
-            apply = (ic[None, :] < cnt) & (cnt >= 100)
-            rows[idx, M:M + W] = torch.where(apply, ramped, content)
-        sel = np.flatnonzero(arrays["region_fade_after"].reshape(-1) > 0)
-        if sel.size:
-            idx = torch.as_tensor(sel, device=bufs.device)
-            rows[idx, M:M + W] = dops.tail_fade_window(
-                rows[idx, M:M + W], lens[idx],
-                ar["region_fade_after"].reshape(-1)[idx], dims.FADE2W)
-        return rows.reshape(B, R, dims.WREG)
+        cnt = lens[:, None]
+        c = ar["region_contour"].reshape(-1, 5)
+        es, ee = c[:, 3:4], c[:, 4:5]
+        content = rows[:, M:M + W]
+        ic = torch.arange(W, device=bufs.device)
+        te = ic.to(F32)[None, :] / torch.clamp(cnt - 1, min=1).to(F32)
+        ramped = q16(content * (es + (ee - es) * te))
+        on = (ar["region_do_dsp"] & ar["region_energy"]).reshape(-1, 1)
+        apply = (ic[None, :] < cnt) & (cnt >= 100) & on
+        content.copy_(torch.where(apply, ramped, content))
+        dops.tail_fade_window(content, lens,
+                              ar["region_fade_after"].reshape(-1),
+                              dims.FADE2W)
+        return rows.reshape(bufs.shape)
 
     # -- assembly (device.py:1596-1635) -------------------------------------
 
@@ -519,13 +575,18 @@ def warn_overflow(n_ovf: int) -> None:
 def execute_plan_torch(plan: SynthesisPlan, db: VoiceDatabase,
                        voice: Optional[DeviceVoice] = None) -> np.ndarray:
     """Single-sentence entry: lower into a bucket, run, trim, int16
-    (ctts_tpu/synth/device.py:1660 execute_plan_jax)."""
+    (ctts_tpu/synth/device.py:1660 execute_plan_jax). It runs the core
+    eagerly: a graph replayed once would cost a warm-up and a capture on
+    top of the eager run (synth/compiled.py serves the batch path)."""
     if voice is None:
         voice = DeviceVoice(db, plan.target_rms)
     w = walk_plan(plan, db)
     dplan = fill_device_plan(w, db, bucket_dims(derive_dims(w, db)))
     arrays = {k: np.asarray(v)[None] for k, v in dplan.arrays.items()}
-    shared = shared_plan_values(dplan.arrays, voice.lengths_np, dplan.dims)
-    out, out_len, ovf = SynthesisCore(voice)(dplan.dims, arrays, shared)
+    arrays.update(shared_plan_values(dplan.arrays, voice.lengths_np,
+                                     dplan.dims))
+    check_zone_capacity(dplan.dims, arrays)
+    out, out_len, ovf = SynthesisCore(voice)(
+        dplan.dims, stage_inputs(arrays, voice.device), refine_depth(arrays))
     warn_overflow(int(ovf.sum()))
     return out[0, :int(out_len[0])].cpu().numpy()

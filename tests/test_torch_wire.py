@@ -129,8 +129,9 @@ def test_wire_serving_matches_plain(pair):
 
 def test_wire_serving_pads_packed_buffer(pair, monkeypatch):
     """A packed buffer whose length is not a multiple of the block is
-    padded before encoding; the samples stay equal."""
-    from ctts_tpu_torch.parallel import batch
+    padded before encoding; the samples stay equal. The serving path
+    packs inside the compiled batch core (synth/compiled.py)."""
+    from ctts_tpu_torch.synth import compiled as batch
 
     plain, wired, want = pair
     lengths = []
