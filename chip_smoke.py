@@ -29,13 +29,15 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      16 bench texts (batch i: the texts rotated by i, 7 times over, and
      16 rows of text i, so that every batch differs and a batch
      overwritten by the next would show) at speed 1.0 and again at
-     speed 1.5 (WSOLA), through the compiled core (a CUDA graph per
-     signature, captured at first use and replayed) as served (the
-     wire codec on: the default on a CUDA device) and with wire=False,
-     and through the eager core (the same BatchSynthesizer, its shards
-     run op by op), all four in turns. Each speed shows every kernel's
-     launch count on the served stream (per replay), every graph output
-     equal to the eager one bit for bit, wire on equal to wire off, the
+     speed 1.5 (WSOLA), through the compiled core (CUDA graphs per
+     signature: its first batch runs eagerly, its second is captured,
+     later ones replay) as served (the wire codec on: the default on a
+     CUDA device) and with wire=False, and through the eager core (the
+     same BatchSynthesizer, its shards run op by op), all four in
+     turns. Each speed shows every kernel's launch count, read from the
+     profiler trace of one more served stream (replays alone) and equal
+     to the wrappers' counts, every graph output equal to the eager one
+     bit for bit, wire on equal to wire off, the
      outputs held to the NumPy oracle (equal lengths, <= 2 LSB), and for
      each way the steady-state audio-seconds of output per wall-second,
      the host enqueue ms of each shard (staging and the replay, or the
@@ -54,8 +56,13 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      are not batch periods: the steady rate of batches 2-3 is their
      audio over the wall time a 3-batch stream takes beyond a 1-batch
      stream (the same fill and drain cancel), medians of interleaved
-     repeats; the last 3-batch stream is the counted run. A failed
-     capture or replay raises;
+     repeats. Then the varied stream at 1.0 and 1.5: N_VARIED batches of
+     texts drawn from the corpus and the bench texts (varied_texts), so
+     that buckets and batch sizes change from batch to batch, through
+     the graphs and the eager core in turns (graph, eager, eager,
+     graph), with the compiled core's eager / capture / replay runs per
+     batch, each pass's audio-s/s, outputs equal bit for bit and held to
+     the oracle. A failed capture or replay raises;
   6. the entry points: `python -m ctts_tpu_torch.cli build` of the
      generated dataset (byte-equal to phase 5's voice.db), then `synth`
      in a subprocess at speed 1.0 (no flags: the torch executor on the
@@ -64,7 +71,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      with their kernel launch counts, and --executor=native held to the
      oracle; then CTTSEngine.synthesize_batch over the 120-utterance
      corpus (ctts_tpu_torch/testing/corpus.py), one call per speed, every
-     utterance held to the oracle, with its launch counts and wall time;
+     utterance held to the oracle, twice: the first pass (every
+     signature new, so eager) timed, the second (captures) traced for
+     its launch counts and equal to the first;
   7. multi-device: the kernel library's CUDA runtime follows the device
      that torch.cuda.device makes current, on every card, and with two
      or more cards phase 4's kernels on cuda:1 with cuda:0 current
@@ -74,8 +83,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      cuda:0] (two shards on one card, one graph for both), each with
      its graphs (wire on and off) and eager, in turns with the unsplit
      served BatchSynthesizer, each output equal to phase 5's eager
-     stream bit for bit, with launch counts, steady audio-s/s, each
-     shard's host enqueue ms and peak memory per device;
+     stream bit for bit, with launch counts (from a profiler trace, as
+     in phase 5), steady audio-s/s, each shard's host enqueue ms and
+     peak memory per device;
      dryrun_multigpu on both meshes; two processes over gloo, both on
      cuda:0, through synthesize_across_hosts over one batch, process
      0's gather equal to the unsplit served output, with each
@@ -124,6 +134,7 @@ FLOOR = {"U": 32, "R": 16, "FD": 8, "WREG": 32768, "SMAX": 114688,
          "CONTW": 28672, "WIN": 2048, "CFMAX": 1024}
 BATCH_MULT = 8
 N_BATCHES = 3
+N_VARIED = 8        # batches of the varied stream (varied_texts)
 TIMING_REPEATS = 5  # interleaved 1- and 3-batch streams, medians used
 SAMPLE_RATE = 22050
 LSB_BOUND = 2       # int16 bound against the oracle (tests/test_device_executor.py)
@@ -664,6 +675,20 @@ def batch_texts(i: int) -> list:
     return rot * (BATCH_MULT - 1) + [rot[0]] * len(TEXTS)
 
 
+def varied_texts(i: int) -> list:
+    """Batch i of the varied stream: as many texts as a stream batch,
+    drawn with replacement (seeded by i) from the distinct texts of the
+    120-utterance corpus and the bench texts. Batches differ in which
+    buckets they fill and how many rows each bucket gets, so signatures
+    come and go as with a server's mixed traffic."""
+    import random
+
+    from ctts_tpu_torch.testing.corpus import CORPUS
+
+    pool = sorted({t for _, t, _ in CORPUS} | set(TEXTS))
+    return random.Random(i).choices(pool, k=len(batch_texts(0)))
+
+
 def check_oracle(np, db, config, batches, speed: float) -> int:
     """Every output of the stream batches (batch i holds batch_texts(i))
     is held to the oracle; returns the largest difference."""
@@ -720,7 +745,8 @@ def timed_method(bs, name: str, log: list):
 
 def captures(bs) -> list:
     """The graphs captured for bs's cores: signature, capture seconds
-    (the warm-up run included) and kernel launches per replay."""
+    (the three graphs of a signature) and kernel launches per replay of
+    the prologue and epilogue, and per refine trip."""
     from ctts_tpu_torch.synth import compiled
 
     toks = {getattr(s.core, "_graph_token", None) for s in bs.shards}
@@ -731,19 +757,15 @@ def captures(bs) -> list:
             out.append({"device": sig.device, "rows": dict(
                 (n, shape) for n, _, shape in sig.layout)["speed"][0],
                 "stretch": sig.dims.stretch, "hop": sig.dims.synth_hop,
-                "trips": sig.trips, "wire": sig.wire,
-                "capture_s": entry.capture_s,
-                "launches_per_replay": dict(entry.launches)})
+                "wire": sig.wire, "capture_s": entry.capture_s,
+                "launches_per_replay": dict(entry.launches),
+                "launches_per_refine_trip": dict(entry.trip_launches)})
     return out
 
 
-def device_idle(torch, run, batches: int) -> dict:
-    """torch.profiler (CPU and CUDA) over run(): the window is the
-    host span of run(), the device busy time the union of the kernel,
-    copy and fill intervals of the card inside it. Returns the idle
-    share, the kernel time per batch and the largest kernels, or
-    "not measured" when the trace holds no device activity. Kernels
-    replayed from a CUDA graph are traced as kernels too."""
+def profile_events(torch, run):
+    """(run()'s result, the chrome-trace events of torch.profiler (CPU
+    and CUDA) over it, the window event of run()'s host span)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -751,7 +773,7 @@ def device_idle(torch, run, batches: int) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("ctts_window"):
-                run()
+                out = run()
             torch.cuda.synchronize()
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -761,13 +783,28 @@ def device_idle(torch, run, batches: int) -> dict:
         else trace
     window = [e for e in events if e.get("name") == "ctts_window"
               and e.get("ph") == "X"]
-    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+    return out, events, window[0] if window else None
+
+
+def device_events(events) -> list:
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") in (
         "kernel", "gpu_memcpy", "gpu_memset")]
-    if not window or not dev:
+
+
+def device_idle(torch, run, batches: int) -> dict:
+    """torch.profiler over run(): the window is the host span of run(),
+    the device busy time the union of the kernel, copy and fill
+    intervals of the card inside it. Returns the idle share, the kernel
+    time per batch and the largest kernels, or "not measured" when the
+    trace holds no device activity. Kernels replayed from a CUDA graph
+    are traced as kernels too."""
+    _, events, window = profile_events(torch, run)
+    dev = device_events(events)
+    if window is None or not dev:
         return {"idle_share": "not measured",
                 "reason": "the trace holds no device activity"}
-    w0 = float(window[0]["ts"])
-    w1 = w0 + float(window[0]["dur"])
+    w0 = float(window["ts"])
+    w1 = w0 + float(window["dur"])
     spans = sorted((max(float(e["ts"]), w0),
                     min(float(e["ts"]) + float(e["dur"]), w1)) for e in dev)
     busy, end = 0.0, w0
@@ -790,6 +827,39 @@ def device_idle(torch, run, batches: int) -> dict:
             / 1e3 / batches,
             "top_kernels_ms_per_batch": [(n[:60], d / 1e3 / batches)
                                          for n, d in top]}
+
+
+def traced_launches(torch, hopper, run, what: str):
+    """Runs run() under torch.profiler with every wrapper count set to 0
+    first. Counts, per kernel, the launches of each of its __global__
+    functions (mod.GLOBALS) among the trace's kernels: the launches
+    measured on the card, replays included. Raises when a function's
+    trace count differs from the wrapper's count (for a graph, what its
+    capture recorded times its replays). Returns (run()'s result, the
+    trace counts per kernel, the compiled core's eager / capture /
+    replay runs)."""
+    import re
+
+    from ctts_tpu_torch.synth import compiled
+
+    runs = dict(compiled.runs)
+    hopper.reset_launches()
+    out, events, _ = profile_events(torch, run)
+    counted = hopper.launch_counts()
+    names = [e["name"] for e in device_events(events)
+             if e["cat"] == "kernel"]
+    traced = {}
+    for m in hopper.MODULES:
+        per = {g: sum(1 for n in names if re.search(rf"\b{g}\b", n))
+               for g in m.GLOBALS}
+        if any(c != counted[m.KERNEL] for c in per.values()):
+            raise RuntimeError(f"{what}: {m.KERNEL} counted "
+                               f"{counted[m.KERNEL]} launches, the trace "
+                               f"holds {per}")
+        traced[m.KERNEL] = per[m.GLOBALS[0]]
+    runs = {k: compiled.runs[k] - runs.get(k, 0)
+            for k in ("eager", "capture", "replay")}
+    return out, traced, runs
 
 
 def record_pitch_lengths(torch, hopper, run) -> dict:
@@ -881,8 +951,10 @@ def serve(torch, np, hopper, ways: dict, speed: float,
     `plain` (graphs, wire=False) and their eager twins. Every graph
     output equals its eager twin's bit for bit, wire on equals wire off,
     and the served outputs are held to the oracle. The launch counts are
-    those of the served last 3-batch stream (per replay), where every
-    kernel in `kernels` must have launched; each way's host enqueue ms a
+    read from the profiler's trace of one more served 3-batch stream,
+    served by replays alone and equal to the eager outputs, where every
+    kernel in `kernels` must have launched as often as the wrappers
+    count; each way's host enqueue ms a
     shard, drain ms, steady rate and peak memory, the graphs' captures,
     and the device idle share of a profiled 3-batch stream, served and
     eager."""
@@ -936,20 +1008,23 @@ def serve(torch, np, hopper, ways: dict, speed: float,
                     enqueue[key].clear()
                     lower[key].clear()
                     if key == "wire":
-                        hopper.reset_launches()
                         probe.decodes.clear()
                 batches[key], wall = stream_of(torch, bs, N_BATCHES, speed)
                 walls[key][1].append(wall)
                 if last:
                     peak[key] = torch.cuda.max_memory_allocated()
                     if key == "wire":
-                        launches = hopper.launch_counts()
                         decodes = list(probe.decodes)
         packed, classes = probe.last
-        idle = {key: stream_idle(torch, ways[key], speed)
-                for key in ways}
     for bs in ways.values():
         del bs._finish, bs._enqueue_shard, bs._lower_batch
+    # The counted run: the served stream once more, its launches read
+    # from the profiler's trace.
+    counted, launches, runs = traced_launches(
+        torch, hopper, lambda: stream_of(torch, served, N_BATCHES,
+                                         speed)[0],
+        f"the served stream at {speed}")
+    idle = {key: stream_idle(torch, ways[key], speed) for key in ways}
 
     equal_outputs(np, batches["wire"], batches["eager"],
                   f"speed {speed}: graph vs eager, wire on")
@@ -957,6 +1032,11 @@ def serve(torch, np, hopper, ways: dict, speed: float,
                   f"speed {speed}: graph vs eager, wire off")
     equal_outputs(np, batches["wire"], batches["plain"],
                   f"speed {speed}: wire on vs wire off")
+    equal_outputs(np, counted, batches["eager"],
+                  f"speed {speed}: the counted graph run vs eager")
+    if runs["eager"] or runs["capture"] or runs["replay"] < N_BATCHES:
+        raise RuntimeError(f"speed {speed}: the counted run was not served "
+                           f"by replays alone: {runs}")
     worst = check_oracle(np, served.db, served.config, batches["wire"],
                          speed)
     missing = [k for k in kernels if launches[k] <= 0]
@@ -969,7 +1049,8 @@ def serve(torch, np, hopper, ways: dict, speed: float,
            "sentences_per_batch": len(batch_texts(0)),
            "distinct_texts": len(TEXTS), "graph_equals_eager": True,
            "wire_equals_plain": True, "oracle_max_abs_diff": worst,
-           "launches": launches, "audio_s_per_batch": audio,
+           "launches": launches, "compiled_runs": runs,
+           "audio_s_per_batch": audio,
            "pitch_rows": lengths, "captures": captures(served)
            + captures(ways["plain"]), "device_idle": idle}
     for key in ways:
@@ -1000,6 +1081,68 @@ def serve(torch, np, hopper, ways: dict, speed: float,
         + int(classes.shape[0]),
         "decode_host_ms": [d[2] * 1e3 for d in decodes]})
     return res, batches["eager"]
+
+
+def serve_varied(torch, np, served, eager, speed: float) -> dict:
+    """stream() over N_VARIED batches of varied_texts through the served
+    BatchSynthesizer (graphs, the wire codec on) and its eager twin in
+    turns: graph, eager, eager, graph. The first graph pass meets the
+    stream's signatures anew (a signature's first batch runs eagerly,
+    its second is captured), the second pass replays. Per batch of each
+    graph pass, the buckets and the compiled core's eager / capture /
+    replay runs; per pass, the audio-seconds per wall-second of the whole
+    stream. Every output equals the eager twin's bit for bit, and the
+    eager outputs are held to the oracle."""
+    from ctts_tpu_torch.synth import compiled
+
+    per_batch = []
+    enqueue = served._enqueue
+
+    def counted(prepared):
+        before = dict(compiled.runs)
+        out = enqueue(prepared)
+        per_batch.append(dict(
+            {k: compiled.runs[k] - before.get(k, 0)
+             for k in ("eager", "capture", "replay")},
+            buckets=len(prepared[1])))
+        return out
+    served._enqueue = counted
+    outs, passes = {}, []
+    try:
+        for key, bs in (("graph", served), ("eager", eager),
+                        ("eager", eager), ("graph", served)):
+            per_batch.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = list(bs.stream((varied_texts(i) for i in range(N_VARIED)),
+                                 speed=speed))
+            wall = time.perf_counter() - t0
+            if key in outs:
+                equal_outputs(np, got, outs[key], f"varied at {speed}: "
+                              f"{key} passes")
+            outs[key] = got
+            passes.append({"way": key, "wall_s": wall,
+                           "per_batch": list(per_batch) if key == "graph"
+                           else None})
+    finally:
+        del served._enqueue
+    equal_outputs(np, outs["graph"], outs["eager"],
+                  f"varied at {speed}: graph vs eager")
+    refs, worst = {}, 0
+    for i, got in enumerate(outs["eager"]):
+        for text, out in zip(varied_texts(i), got):
+            if text not in refs:
+                refs[text] = oracle(served.db, served.config, text, speed)
+            worst = max(worst, held_to(np, out, refs[text],
+                                       f"{text!r} at {speed}"))
+    audio = sum(o.shape[0] for b in outs["eager"] for o in b) / SAMPLE_RATE
+    for p in passes:
+        p["audio_s_per_wall_s"] = audio / p["wall_s"]
+    return {"speed": speed, "batches": N_VARIED,
+            "sentences_per_batch": len(varied_texts(0)),
+            "distinct_texts": len(refs), "audio_s": audio,
+            "graph_equals_eager": True, "oracle_max_abs_diff": worst,
+            "passes": passes, "graphs_captured": len(compiled.signatures())}
 
 
 def stream_idle(torch, bs, speed: float) -> dict:
@@ -1077,13 +1220,19 @@ def run_slice(torch, np, hopper, root: str):
     say("slice_stretch", res["1.5"])
 
     texts = batch_texts(0)
-    served.synthesize(texts, speed=SYNC_SPEED)    # first-use set-up
+    for _ in range(2):    # first-use set-up: the eager batch, the capture
+        served.synthesize(texts, speed=SYNC_SPEED)
     torch.cuda.synchronize()
-    hopper.reset_launches()
     t0 = time.perf_counter()
     outs = served.synthesize(texts, speed=SYNC_SPEED)
     wall = time.perf_counter() - t0
-    launches = hopper.launch_counts()
+    traced, launches, runs = traced_launches(
+        torch, hopper, lambda: served.synthesize(texts, speed=SYNC_SPEED),
+        f"synthesize at {SYNC_SPEED}")
+    equal_outputs(np, [traced], [outs], f"speed {SYNC_SPEED}: two replays")
+    if runs["eager"] or runs["capture"] or not runs["replay"]:
+        raise RuntimeError(f"speed {SYNC_SPEED}: not served by a replay: "
+                           f"{runs}")
     worst = check_oracle(np, db, served.config, [outs], SYNC_SPEED)
     missing = [k for k in names if launches[k] <= 0]
     if missing:
@@ -1094,12 +1243,21 @@ def run_slice(torch, np, hopper, root: str):
     audio = sum(o.shape[0] for o in outs) / SAMPLE_RATE
     res["0.5"] = {"speed": SYNC_SPEED, "sentences": len(texts),
                   "oracle_max_abs_diff": worst, "graph_equals_eager": True,
-                  "launches": launches, "wall_s": wall, "audio_s": audio,
+                  "launches": launches, "compiled_runs": runs,
+                  "wall_s": wall, "audio_s": audio,
                   "audio_s_per_wall_s": audio / wall}
     say("synthesize_sync", res["0.5"])
     res["memory"] = dict(graph_memory(torch, served, ways["eager"]),
                          served_captures=captures(served))
     say("graph_memory", res["memory"])
+    for speed in (1.0, STRETCH_SPEED):
+        res[f"varied_{speed}"] = serve_varied(torch, np, served,
+                                              ways["eager"], speed)
+        say("slice_varied", res[f"varied_{speed}"])
+    res["memory"]["after_varied"] = {
+        "graphs_captured": len(captures(served)),
+        "memory_reserved_bytes": torch.cuda.memory_reserved()}
+    say("graph_memory_after_varied", res["memory"]["after_varied"])
     return res, served, outputs
 
 
@@ -1195,14 +1353,29 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     for _, text, speed in CORPUS:
         groups[speed].append(text)
     eng = CTTSEngine(dbp, device=torch.device("cuda"))
-    try:
-        torch.cuda.synchronize()
-        hopper.reset_launches()
-        t0 = time.perf_counter()
-        outs = {sp: eng.synthesize_batch(texts, sp)
+
+    def corpus():
+        return {sp: eng.synthesize_batch(texts, sp)
                 for sp, texts in groups.items()}
+    try:
+        # First pass: every signature is new, so every batch runs
+        # eagerly; the second (traced) captures them and replays.
+        from ctts_tpu_torch.synth import compiled
+
+        before = dict(compiled.runs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = corpus()
         wall = time.perf_counter() - t0
-        launches = hopper.launch_counts()
+        first = {k: compiled.runs[k] - before.get(k, 0)
+                 for k in ("eager", "capture", "replay")}
+        t0 = time.perf_counter()
+        again, launches, runs = traced_launches(torch, hopper, corpus,
+                                                "the corpus")
+        wall_again = time.perf_counter() - t0
+        for sp in groups:
+            equal_outputs(np, [again[sp]], [outs[sp]],
+                          f"corpus at {sp}: second pass vs first")
         worst = max(held_to_oracle(np, db, cfg, o, t, sp)
                     for sp, texts in groups.items()
                     for t, o in zip(texts, outs[sp]))
@@ -1212,14 +1385,18 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     finally:
         eng.close()
     missing = [m.KERNEL for m in hopper.MODULES if launches[m.KERNEL] <= 0]
-    if missing:
-        raise RuntimeError(f"corpus: kernels not launched: {missing}")
+    if missing or first["capture"] or first["replay"] or not runs["capture"]:
+        raise RuntimeError(f"corpus: kernels not launched: {missing}, or "
+                           f"the passes ran {first} and {runs}")
     audio = sum(o.shape[0] for v in outs.values() for o in v) / SAMPLE_RATE
     res["corpus"] = {"utterances": sum(len(v) for v in outs.values()),
                      "held_to_oracle": sum(len(v) for v in outs.values()),
                      "speeds": {str(k): len(v) for k, v in groups.items()},
-                     "oracle_max_abs_diff": worst, "launches": launches,
-                     "wall_s": wall, "audio_s": audio}
+                     "oracle_max_abs_diff": worst, "audio_s": audio,
+                     "wall_s": wall, "compiled_runs": first,
+                     "second_pass": {"wall_s_traced": wall_again,
+                                     "compiled_runs": runs,
+                                     "launches": launches}}
     say("entry_points", res)
     return res
 
@@ -1249,7 +1426,8 @@ from ctts_tpu_torch.parallel.multihost import (
 initialize(coordinator, 2, rank, timeout_s=240)
 bs = BatchSynthesizer(VoiceDatabase(dbp), config_defaults(),
                       device=torch.device("cuda", 0), dims_floor=floor)
-synthesize_across_hosts(bs, texts, return_local=True)    # first-use set-up
+for _ in range(2):    # first-use set-up: the eager batch, the capture
+    synthesize_across_hosts(bs, texts, return_local=True)
 gathers = []
 all_gather = dist.all_gather
 def timed(parts, t, *args, **kwargs):
@@ -1322,11 +1500,12 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
     BatchSynthesizer of `ways` (the unsplit served one, and per mesh its
     graphs with the codec on and off and its eager twin), in turns, timed
     as serve() times them; every output equals `want` (phase 5's eager
-    stream, equal to its graphs) bit for bit. Launch counts, each shard's
-    host enqueue ms (staging and the replay or the eager launches, pack,
-    encode) and peak memory per device are those of each way's last
-    3-batch stream, where every kernel in `kernels` must have
-    launched."""
+    stream, equal to its graphs) bit for bit. Each shard's host enqueue
+    ms (staging and the replay or the eager launches, pack, encode) and
+    peak memory per device are those of each way's last timed 3-batch
+    stream; the launch counts come from the profiler's trace of one more
+    3-batch stream a way (traced_launches; graphs: replays alone), where
+    every kernel in `kernels` must have launched."""
     enqueue = {k: [] for k in ways}
     for key, bs in ways.items():
         timed_method(bs, "_enqueue_shard", enqueue[key])
@@ -1345,13 +1524,17 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
                     for d in devs:
                         torch.cuda.reset_peak_memory_stats(d)
                     enqueue[key].clear()
-                    hopper.reset_launches()
                 got[key], wall = stream_of(torch, bs, N_BATCHES, speed)
                 walls[key][1].append(wall)
                 if last:
-                    launches[key] = hopper.launch_counts()
                     peak[key] = {str(d): torch.cuda.max_memory_allocated(d)
                                  for d in devs}
+        counted, runs = {}, {}
+        for key, bs in ways.items():
+            counted[key], launches[key], runs[key] = traced_launches(
+                torch, hopper, lambda: stream_of(torch, bs, N_BATCHES,
+                                                 speed)[0],
+                f"{key} at {speed}")
     finally:
         for bs in ways.values():
             del bs._enqueue_shard
@@ -1361,6 +1544,12 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
     for key, bs in ways.items():
         equal_outputs(np, got[key], want,
                       f"{key} at {speed} vs the unsplit eager stream")
+        equal_outputs(np, counted[key], want,
+                      f"{key} at {speed}, counted, vs the unsplit eager")
+        graph = "eager" not in key
+        if graph and (runs[key]["eager"] or runs[key]["capture"]):
+            raise RuntimeError(f"{key} at {speed}: the counted run was not "
+                               f"served by replays alone: {runs[key]}")
         missing = [k for k in kernels if launches[key][k] <= 0]
         if missing:
             raise RuntimeError(f"{key} at {speed}: kernels not launched: "
@@ -1375,9 +1564,9 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
                      for i in range(size)]
         res[key] = {
             "shards": [str(s.device) for s in bs.shards],
-            "graph": "eager" not in key,
+            "graph": graph,
             "equal_to_unsplit_eager": True,
-            "launches": launches[key],
+            "launches": launches[key], "compiled_runs": runs[key],
             "stream_1_batch_s": w1, "stream_3_batches_s": wn,
             "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
             "steady_audio_s_per_wall_s_each": [

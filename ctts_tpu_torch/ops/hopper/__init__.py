@@ -4,10 +4,12 @@ One module per Pallas kernel of ctts_tpu/ops/pallas: pitch, compose,
 compact and assemble on every path, wsola (both WSOLA kernels) on the
 speed != 1.0 path. Each holds the wrapper (the CUDA kernel for a CUDA
 tensor, the plain PyTorch version for a CPU tensor), the plain version
-itself or its import, and a launch counter that only a kernel launch
-increments. Under CUDA graph capture a launch is recorded, not run:
-recorded_launches takes such counts back, and each replay of the graph
-adds them (synth/compiled.py).
+itself or its import, a launch counter that only a kernel launch
+increments, and GLOBALS, the __global__ functions a launch runs. Under
+CUDA graph capture a launch is recorded, not run: recorded_launches
+takes such counts back, and each replay of the graph adds them
+(synth/compiled.py); chip_smoke.py holds the counts to the GLOBALS a
+profiler trace shows.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ from ctts_tpu_torch.ops.hopper.build import check, launch
 KERNEL = "compact"
 SOURCE = "ctts_tpu_torch/csrc/compact.cu"
 REPLACES = "ctts_tpu/ops/pallas/compact.py:89"
+GLOBALS = ("compact_kernel",)
 
 launches = 0
 

@@ -22,6 +22,7 @@ from ctts_tpu_torch.ops.quant import q16, trunc16
 KERNEL = "compose"
 SOURCE = "ctts_tpu_torch/csrc/compose.cu"
 REPLACES = "ctts_tpu/ops/pallas/compose.py:145"
+GLOBALS = ("compose_kernel",)
 
 SEGW = 512
 

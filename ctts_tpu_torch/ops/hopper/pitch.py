@@ -18,6 +18,7 @@ from ctts_tpu_torch.ops.hopper.build import check, launch
 KERNEL = "pitch_corr"
 SOURCE = "ctts_tpu_torch/csrc/pitch.cu"
 REPLACES = "ctts_tpu/ops/pallas/pitch.py:88"
+GLOBALS = ("pitch_corr_kernel",)
 
 SPAN = 495   # PITCH_MAX_LAG + PITCH_ANALYSIS
 ANA = 220    # PITCH_ANALYSIS

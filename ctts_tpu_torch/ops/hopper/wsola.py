@@ -19,6 +19,7 @@ from ctts_tpu_torch.ops.wsola import FRAME, max_steps_for, wsola_frames_plain
 KERNEL = "wsola_frames"
 SOURCE = "ctts_tpu_torch/csrc/wsola.cu"
 REPLACES = "ctts_tpu/ops/pallas/wsola.py:515"
+GLOBALS = ("wsola_decide_kernel", "wsola_emit_kernel")
 
 launches = 0
 

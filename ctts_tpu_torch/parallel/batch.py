@@ -34,12 +34,12 @@ is the unsplit path: the same calls as before the split existed.
 
 Each shard runs the compiled batch core of synth/compiled.py, the
 counterpart of `_compiled_batch_core` (ctts_tpu/parallel/batch.py:
-36-146): on a CUDA device a graph captured once per signature (bucket
-dims, rows per shard, shared-table lengths, refine depth, wire flag) and
-replayed for every later batch, its outputs copied out of the graph's
-memory right after the replay, so that the next batch's replay cannot
-overwrite a payload the copy stream is still reading; on the CPU the
-same core eagerly. Shards on one device share its core and so its
+36-146): on a CUDA device CUDA graphs per signature (bucket dims, rows
+per shard, shared-table lengths, wire flag), the signature's first
+batch run eagerly, its second captured, and every later one replayed,
+the outputs copied out of the graphs' memory right after the replay, so
+that the next batch's replay cannot overwrite a payload the copy stream
+is still reading; on the CPU the same core eagerly. Shards on one device share its core and so its
 graphs. `release_compiled` (synth/compiled.py) drops the graphs, as the
 JAX module's drops its executables; its `_no_persistent_cache` works
 around an XLA:CPU crash and has no counterpart.

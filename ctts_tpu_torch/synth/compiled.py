@@ -1,4 +1,4 @@
-"""The compiled batch core: one CUDA graph per batch signature, replayed.
+"""The compiled batch core: CUDA graphs per batch signature, replayed.
 
 Counterpart of the JAX package's compiled programs:
 `_compiled_batch_core` (ctts_tpu/parallel/batch.py:36-146) builds one
@@ -9,38 +9,48 @@ and `_compiled_core` (ctts_tpu/synth/device.py:648, 1655) do the same
 for one sentence; `release_compiled` (ctts_tpu/parallel/batch.py:
 179-199) drops them.
 
-Here the program is a CUDA graph. `run_batch` captures, for each
-signature (the core's voice and device, the bucket dims, the layout of
-the staged arrays, which fixes the batch size and the shared-table
-lengths, the static refine depth and the wire flag), what
-SynthesisCore.forward, pack_rows, the wire pad and wire.encode launch
-(synth/device.py makes that sequence depend on nothing else), and
-replays it for every later batch of the signature:
-  - inputs: the graph reads one static device byte buffer; a batch's
+Here the program is three CUDA graphs, one per stage of SynthesisCore
+(synth/device.py makes what each stage launches depend on nothing but
+the signature): the prologue, one refine trip, and the epilogue with
+pack_rows, the wire pad and wire.encode. A batch replays the prologue,
+the trip graph once per trip of its refine depth (read from the host
+arrays before staging; the counterpart of the while_loop of ctts_tpu/
+synth/device.py:1186-1214, whose trip count XLA reads on the device),
+then the epilogue. The signature is the core's voice and device, the
+bucket dims, the layout of the staged arrays (which fixes the batch size
+and the shared-table lengths) and the wire flag.
+  - inputs: the graphs read one static device byte buffer; a batch's
     arrays are packed into one pinned host buffer and reach it in one
-    copy (device.Staging);
-  - capture: one eager run on a side stream first, so that the lazy
-    LUT and Hann uploads (ops/luts.py) and the kernel library's build
-    and module loads happen outside capture; then torch.cuda.graph on a
-    capture stream of the device, in thread-local mode (the serving
-    drain thread keeps running);
+    copy (Staging.upload);
+  - when: a signature's first batch runs the same stages eagerly, which
+    also makes the lazy LUT and Hann uploads (ops/luts.py) and the
+    kernel library's build and module loads happen outside capture; its
+    second batch captures the graphs (on a capture stream of the device,
+    in thread-local mode, so the serving drain thread keeps running)
+    and replays them, as does every later one. A batch whose signature
+    never comes back costs no capture;
   - memory: one pool per device, shared by every graph captured there.
-    Replays on a device are serialized on its current stream, and each
-    replay's outputs are copied out of the pool at once, so a later
-    replay of any graph of that pool may reuse the memory;
-  - cache: an LRU of MAX_GRAPHS signatures; release_compiled() drops
-    every graph and its pool;
+    Replays on a device are serialized on its current stream, a
+    signature's three replays run back to back, and each replay's
+    outputs are copied out of the pool at once; so the stage state
+    (written by the prologue, read by the trips and the epilogue) is
+    dropped after capture, and any later capture of the pool may reuse
+    its memory and that of every graph's temporaries;
+  - cache: an LRU of MAX_GRAPHS captured signatures (and one of the
+    signatures seen once); release_compiled() drops every graph and its
+    pool;
   - launch counts: a capture launches nothing, so the kernel wrappers'
-    counts made while capturing are taken back and each replay adds
-    what its graph recorded (ops/hopper.recorded_launches).
+    counts made while capturing are taken back, and each replay adds
+    what its graphs recorded (ops/hopper.recorded_launches); chip_smoke.py
+    holds these counts to the kernels of a profiler trace.
 A failed capture or replay raises: nothing falls back to the eager
-path on a CUDA device. On the CPU (asked for explicitly, as the tests
-do) run_batch stages the inputs and runs the same shape-static core
-eagerly (run_eager).
+path after a capture on a CUDA device. On the CPU (asked for
+explicitly, as the tests do) run_batch stages the inputs and runs the
+same stages eagerly (run_eager).
 
 The one-shot path (execute_plan_torch, the CLI's synth) stays eager: a
-graph replayed once costs a warm-up and a capture on top of the eager
-run, as _compiled_core costs an XLA compile on top of it.
+graph replayed once would cost a capture on top of the eager run, as
+_compiled_core costs an XLA compile on top of it.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -60,11 +70,11 @@ from ctts_tpu_torch.synth.device import (
     SynthesisCore,
     check_zone_capacity,
     refine_depth,
-    stage_inputs,
 )
 from ctts_tpu_torch.synth.plan_arrays import PlanDims
 
 MAX_GRAPHS = 64   # the lru_cache size of _compiled_batch_core
+MAX_SEEN = 4 * MAX_GRAPHS
 
 
 def pack_rows(out: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
@@ -81,13 +91,10 @@ def pack_rows(out: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
     return packed[:B * OM]
 
 
-def batch_core(core: SynthesisCore, dims: PlanDims, ar: dict, trips: int,
-               wire: bool):
-    """What a graph covers (JAX's `run`, ctts_tpu/parallel/batch.py:
-    75-100): the core, pack_rows and, with the codec, the pad to whole
-    blocks and encode. Returns (payload, classes or None, out_lens,
-    ovf)."""
-    out, out_lens, ovf = core(dims, ar, trips)
+def _pack_encode(out, out_lens, ovf, wire: bool):
+    """pack_rows and, with the codec, the pad to whole blocks and encode
+    (the tail of JAX's `run`, ctts_tpu/parallel/batch.py:75-100):
+    (payload, classes or None, out_lens, ovf)."""
     packed = pack_rows(out, out_lens)
     if not wire:
         return packed, None, out_lens, ovf
@@ -96,6 +103,20 @@ def batch_core(core: SynthesisCore, dims: PlanDims, ar: dict, trips: int,
         packed = torch.cat([packed, packed.new_zeros(pad)])
     words, classes = wire_codec.encode(packed)
     return words, classes, out_lens, ovf
+
+
+def batch_epilogue(core: SynthesisCore, dims: PlanDims, st: dict,
+                   wire: bool):
+    """What the epilogue graph covers: the core's epilogue, pack and
+    encode."""
+    return _pack_encode(*core.epilogue(dims, st), wire)
+
+
+def batch_core(core: SynthesisCore, dims: PlanDims, ar: dict, trips: int,
+               wire: bool):
+    """What a signature's graphs cover, op by op: the core, pack and
+    encode."""
+    return _pack_encode(*core(dims, ar, trips), wire)
 
 
 def _inputs(dims: PlanDims, arrays: dict, shared: dict) -> dict:
@@ -107,11 +128,12 @@ def _inputs(dims: PlanDims, arrays: dict, shared: dict) -> dict:
 
 def run_eager(core: SynthesisCore, dims: PlanDims, arrays: dict,
               shared: dict, wire: bool):
-    """batch_core on freshly staged inputs, op by op (the CPU path, and
-    the reference a graph's output is held to)."""
+    """batch_core on freshly staged inputs, op by op (the CPU path, a
+    signature's first batch, and the reference a graph's output is held
+    to)."""
     merged = _inputs(dims, arrays, shared)
-    return batch_core(core, dims, stage_inputs(merged, core.bank.device),
-                      refine_depth(merged), wire)
+    ar = Staging(merged).upload(merged, core.bank.device)
+    return batch_core(core, dims, ar, refine_depth(merged), wire)
 
 
 class Signature(NamedTuple):
@@ -119,59 +141,77 @@ class Signature(NamedTuple):
     device: str
     dims: PlanDims
     layout: tuple        # Staging.key(): names, dtypes and shapes
-    trips: int
     wire: bool
 
 
 class CapturedCore:
-    """One signature's graph, its static input buffer and outputs, and
-    the kernel launches it recorded."""
+    """One signature's graphs (prologue, refine trip, epilogue), their
+    static input buffer and outputs, and the kernel launches each
+    recorded."""
 
-    def __init__(self, core: SynthesisCore, sig: Signature, layout: Staging,
-                 merged: dict):
+    def __init__(self, core: SynthesisCore, sig: Signature, layout: Staging):
         dev = core.bank.device
-        self.core = core              # the graph reads its voice tensors
+        self.core = core              # the graphs read its voice tensors
         self.layout = layout
         self.static_in = torch.empty(layout.nbytes, dtype=torch.uint8,
                                      device=dev)
-        self._fill(merged)
         ar = layout.views(self.static_in)
+        dims = sig.dims
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            batch_core(core, sig.dims, ar, sig.trips, sig.wire)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with hopper.recorded_launches() as self.launches:
-            with torch.cuda.graph(self.graph, pool=_pool(dev),
-                                  stream=_capture_stream(dev),
-                                  capture_error_mode="thread_local"):
-                self.outputs = batch_core(core, sig.dims, ar, sig.trips,
-                                          sig.wire)
+        torch.cuda.synchronize(dev)
+        self.prologue, pro, st = _capture(
+            dev, lambda: core.prologue(dims, ar))
+        self.trip, self.trip_launches, _ = _capture(
+            dev, lambda: core.refine_trip(dims, st))
+        self.epilogue, epi, self.outputs = _capture(
+            dev, lambda: batch_epilogue(core, dims, st, sig.wire))
+        # The stage state lives from the prologue's replay to the
+        # epilogue's, which nothing else interleaves with: once no tensor
+        # holds it, later captures may reuse its memory.
+        del st
+        self.launches = Counter(pro) + Counter(epi)
         self.capture_s = time.perf_counter() - t0
 
-    def _fill(self, merged: dict) -> None:
-        host = torch.empty(self.layout.nbytes, dtype=torch.uint8,
-                           pin_memory=True)
-        self.layout.pack(merged, host.numpy())
-        self.static_in.copy_(host, non_blocking=True)
-
-    def replay(self, merged: dict):
-        """Stage the batch, replay, and copy the outputs out of the
-        pool (on the device's current stream, before any later
-        replay)."""
-        self._fill(merged)
-        self.graph.replay()
+    def replay(self, merged: dict, trips: int):
+        """Stage the batch, replay the prologue, `trips` refine trips and
+        the epilogue, and copy the outputs out of the pool (on the
+        device's current stream, before any later replay)."""
+        self.layout.upload(merged, self.static_in.device, self.static_in)
+        self.prologue.replay()
+        for _ in range(trips):
+            self.trip.replay()
+        self.epilogue.replay()
         hopper.add_launches(self.launches)
+        for _ in range(trips):
+            hopper.add_launches(self.trip_launches)
         return tuple(None if t is None else t.clone() for t in self.outputs)
+
+
+def _capture(dev: torch.device, fn):
+    """(graph, kernel launches it recorded, fn's result captured). What
+    torch.cuda.graph does, less its empty_cache of the device and of the
+    pinned host memory on every capture: the serving path allocates from
+    both again right after, and a signature captures three graphs."""
+    graph = torch.cuda.CUDAGraph()
+    with hopper.recorded_launches() as launches, \
+            torch.cuda.stream(_capture_stream(dev)):
+        graph.capture_begin(_pool(dev), capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    return graph, launches, out
 
 
 _lock = threading.Lock()
 _graphs: "OrderedDict[Signature, CapturedCore]" = OrderedDict()
+_seen: "OrderedDict[Signature, None]" = OrderedDict()
 _pools: dict = {}
 _streams: dict = {}
 _tokens = itertools.count()
+# Batches run on a card: "eager" (a signature's first), "capture" (its
+# second, captured and replayed), "replay" (every later one).
+runs: Counter = Counter()
 
 
 def _pool(device: torch.device):
@@ -200,16 +240,28 @@ def signature(core: SynthesisCore, dims: PlanDims, arrays: dict,
     merged = _inputs(dims, arrays, shared)
     layout = Staging(merged)
     sig = Signature(_token(core), str(core.bank.device), dims, layout.key(),
-                    refine_depth(merged), bool(wire))
+                    bool(wire))
     return sig, layout, merged
 
 
 def cached(sig: Signature, make):
-    """The entry of `sig`, made by make() at its first use; the least
-    recently used entries past MAX_GRAPHS are dropped."""
+    """The entry of `sig`: None at the signature's first sighting, made
+    by make() at its second, the cached one after (counted in `runs`);
+    the least recently used entries past MAX_GRAPHS (and signatures seen
+    once past MAX_SEEN) are dropped."""
     with _lock:
         entry = _graphs.get(sig)
-        if entry is None:
+        if entry is not None:
+            runs["replay"] += 1
+        elif sig not in _seen:
+            runs["eager"] += 1
+            _seen[sig] = None
+            while len(_seen) > MAX_SEEN:
+                _seen.popitem(last=False)
+            return None
+        else:
+            runs["capture"] += 1
+            del _seen[sig]
             entry = _graphs[sig] = make()
             while len(_graphs) > MAX_GRAPHS:
                 _graphs.popitem(last=False)
@@ -220,21 +272,26 @@ def cached(sig: Signature, make):
 def run_batch(core: SynthesisCore, dims: PlanDims, arrays: dict,
               shared: dict, wire: bool):
     """The compiled batch core: (payload, classes or None, out_lens,
-    ovf) of one shard's rows, from its graph on a CUDA device (captured
-    at the signature's first batch) or eagerly on the CPU."""
+    ovf) of one shard's rows, from its graphs on a CUDA device (eagerly
+    at the signature's first batch, captured at its second) or eagerly
+    on the CPU."""
     dev = core.bank.device
     if dev.type != "cuda":
         return run_eager(core, dims, arrays, shared, wire)
     sig, layout, merged = signature(core, dims, arrays, shared, wire)
+    trips = refine_depth(merged)
     with torch.cuda.device(dev):
         # A capture synchronizes the device first, so no replay of a
         # graph it evicts is still running.
-        entry = cached(sig, lambda: CapturedCore(core, sig, layout, merged))
-        return entry.replay(merged)
+        entry = cached(sig, lambda: CapturedCore(core, sig, layout))
+        if entry is None:
+            return batch_core(core, dims, layout.upload(merged, dev), trips,
+                              wire)
+        return entry.replay(merged, trips)
 
 
 def signatures() -> list:
-    """The cached signatures, least recently used first."""
+    """The captured signatures, least recently used first."""
     with _lock:
         return list(_graphs)
 
@@ -245,15 +302,16 @@ def captured(sig: Signature) -> Optional[CapturedCore]:
 
 
 def release_compiled(core: Optional[SynthesisCore] = None) -> None:
-    """Drop every captured graph (or those of one core) and, when none
-    is left, the pools and capture streams, returning their memory to
-    the device."""
+    """Drop every captured graph and seen signature (or those of one
+    core) and, when no graph is left, the pools and capture streams,
+    returning their memory to the device."""
     with _lock:
         for dev in _pools:
             torch.cuda.synchronize(dev)
         tok = None if core is None else getattr(core, "_graph_token", -1)
-        for sig in [s for s in _graphs if tok is None or s.core == tok]:
-            del _graphs[sig]
+        for table in (_graphs, _seen):
+            for sig in [s for s in table if tok is None or s.core == tok]:
+                del table[sig]
         if not _graphs:
             _pools.clear()
             _streams.clear()

@@ -11,12 +11,13 @@ CPU device their plain versions run).
 
 The core is shape-static, as a traced JAX function is: `stage_inputs`
 uploads a batch's host arrays first (one byte buffer, one copy), and
-`SynthesisCore.forward` then launches a sequence of ops whose shapes
-depend only on the bucket dims, the batch size, the shared-table
-lengths and the static refine depth, never on the values in the
-arrays, and reads nothing back to the host. So synth/compiled.py can
-capture it once per signature as a CUDA graph and replay it, the
-counterpart of the JAX package's compiled programs.
+`SynthesisCore.forward` then runs three stages (a prologue, the refine
+trip once per trip of the batch's refine depth, an epilogue), each a
+sequence of ops whose shapes depend only on the bucket dims, the batch
+size and the shared-table lengths, never on the values in the arrays,
+and none reads back to the host. So synth/compiled.py can capture each
+stage once per signature as a CUDA graph and replay it, the counterpart
+of the JAX package's compiled programs.
 
 Stage order (JAX line numbers): prepare_base and the DC/fade chain of
 make_contrib_fn (761-918); head pitch (1070-1084); the refine loop of
@@ -166,20 +167,29 @@ class Staging:
             out[name] = buf[off:off + n].view(tdt).view(shape)
         return out
 
+    def upload(self, arrays: dict, device: torch.device,
+               out: Optional[torch.Tensor] = None) -> dict:
+        """Pack `arrays` into one host byte buffer (pinned on a CUDA
+        device, so the copy does not wait for the stream), copy it to
+        `out` (a byte buffer of this layout on `device`) or to a new one,
+        and return typed views of the device copy."""
+        pinned = device.type == "cuda"
+        host = torch.empty(self.nbytes, dtype=torch.uint8, pin_memory=pinned)
+        self.pack(arrays, host.numpy())
+        if out is None:
+            out = host.to(device, non_blocking=pinned)
+        else:
+            out.copy_(host, non_blocking=pinned)
+        return self.views(out)
+
 
 def stage_inputs(arrays: dict, device: torch.device) -> dict:
-    """Upload a batch's host arrays with one copy: pack them into one
-    byte buffer (pinned on a CUDA device, so the copy does not wait for
-    the stream) and return typed views of its device copy."""
-    layout = Staging(arrays)
-    pinned = device.type == "cuda"
-    host = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=pinned)
-    layout.pack(arrays, host.numpy())
-    return layout.views(host.to(device, non_blocking=pinned))
+    """Upload a batch's host arrays with one copy (Staging.upload)."""
+    return Staging(arrays).upload(arrays, device)
 
 
 def refine_depth(arrays: dict) -> int:
-    """The batch's static refine depth: the trips of its deepest row."""
+    """The batch's refine depth: the trips of its deepest row."""
     return int(np.max(arrays["refine_trips"], initial=0))
 
 
@@ -204,14 +214,15 @@ class SynthesisCore(nn.Module):
     forward(dims, ar, trips) takes the staged tensors of stage_inputs
     (the batch-stacked arrays of fill_device_plan / the native lowerer,
     [B, ...], and the batch-global value tables of shared_plan_values)
-    and the batch's static refine depth, and returns (out [B, OMAX]
-    int16, out_len [B] i32, ovf [B] i32) on the voice's device (OMAX =
-    SMAX unless the bucket stretches). What it launches depends only on
-    the shapes of `ar`, on dims and on trips: every row runs the refine
-    loop `trips` times (its own trip count through a select, as the
-    vmapped while_loop's), every fade slot and every region run, and the
-    rows that carry a contour or an energy ramp are masked or packed
-    into zones on the device. Nothing reads back to the host."""
+    and the batch's refine depth, and returns (out [B, OMAX] int16,
+    out_len [B] i32, ovf [B] i32) on the voice's device (OMAX = SMAX
+    unless the bucket stretches). It runs three stages: `prologue`,
+    `refine_trip` `trips` times (the body of the vmapped while_loop,
+    each row keeping its own trip count through a select), `epilogue`.
+    What each stage launches depends only on the shapes of `ar` and on
+    dims: every fade slot and every region run, and the rows that carry
+    a contour or an energy ramp are masked or packed into zones on the
+    device. Nothing reads back to the host."""
 
     def __init__(self, voice: DeviceVoice):
         super().__init__()
@@ -222,6 +233,15 @@ class SynthesisCore(nn.Module):
 
     @torch.no_grad()
     def forward(self, dims: PlanDims, ar: dict, trips: int):
+        st = self.prologue(dims, ar)
+        for _ in range(trips):
+            self.refine_trip(dims, st)
+        return self.epilogue(dims, st)
+
+    @torch.no_grad()
+    def prologue(self, dims: PlanDims, ar: dict) -> dict:
+        """Bank pick, crossfade curves and head pitch: the state the
+        refine trips update in place (its heads and trip counter)."""
         if not dims.compose_refine:
             raise NotImplementedError(
                 "only the refine compose (compose_refine=True) is ported")
@@ -234,20 +254,31 @@ class SynthesisCore(nn.Module):
 
         base, fo, fi = self._prepare_base(dims, ar)
         ar["_next_pitch"] = self._head_pitch(dims, ar, base)
-        contrib_fn = self._make_contrib_fn(dims, ar, base, fi)
+        return {"ar": ar, "base": base, "fo": fo,
+                "contrib_fn": self._make_contrib_fn(dims, ar, base, fi),
+                "heads": base[:, :, :dims.CFMAX].clone(),
+                "it": torch.zeros((), dtype=torch.long, device=base.device)}
 
-        # Fixed-point compose: each trip re-derives the unit heads from
-        # the exported analysis windows; a row stops updating once its
-        # own trip count is reached (the vmapped while_loop's select).
-        heads = base[:, :, :dims.CFMAX]
-        row_trips = ar["refine_trips"].long()
-        for it in range(trips):
-            _, seg, tail = self._compose(dims, ar, contrib_fn(heads), fo,
-                                         True)
-            new = self._boundary_heads(dims, ar, base, seg, tail)
-            heads = torch.where((it < row_trips)[:, None, None], new, heads)
-        bufs, _, _ = self._compose(dims, ar, contrib_fn(heads), fo, False)
+    @torch.no_grad()
+    def refine_trip(self, dims: PlanDims, st: dict) -> None:
+        """One trip of the fixed-point compose: re-derive the unit heads
+        from the exported analysis windows; a row whose own trip count
+        is reached keeps its heads (the vmapped while_loop's select)."""
+        ar, heads = st["ar"], st["heads"]
+        _, seg, tail = self._compose(dims, ar, st["contrib_fn"](heads),
+                                     st["fo"], True)
+        new = self._boundary_heads(dims, ar, st["base"], seg, tail)
+        live = st["it"] < ar["refine_trips"].long()
+        heads.copy_(torch.where(live[:, None, None], new, heads))
+        st["it"].add_(1)
 
+    @torch.no_grad()
+    def epilogue(self, dims: PlanDims, st: dict):
+        """The final compose and everything after it: (out, out_len,
+        ovf)."""
+        ar = st["ar"]
+        bufs, _, _ = self._compose(dims, ar, st["contrib_fn"](st["heads"]),
+                                   st["fo"], False)
         bufs = self._tail_fades(dims, ar, bufs)
         starts, dst, seg_lens, comp_lens, ovf = self._seg_tables(
             dims, ar, bufs)
@@ -576,8 +607,8 @@ def execute_plan_torch(plan: SynthesisPlan, db: VoiceDatabase,
                        voice: Optional[DeviceVoice] = None) -> np.ndarray:
     """Single-sentence entry: lower into a bucket, run, trim, int16
     (ctts_tpu/synth/device.py:1660 execute_plan_jax). It runs the core
-    eagerly: a graph replayed once would cost a warm-up and a capture on
-    top of the eager run (synth/compiled.py serves the batch path)."""
+    eagerly: a graph replayed once would cost a capture on top of the
+    eager run (synth/compiled.py serves the batch path)."""
     if voice is None:
         voice = DeviceVoice(db, plan.target_rms)
     w = walk_plan(plan, db)

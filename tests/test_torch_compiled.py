@@ -1,16 +1,17 @@
 """The compiled batch core of ctts_tpu_torch (synth/compiled.py) and the
 shape-static core it captures (synth/device.py), on the CPU.
 
-(a) SynthesisCore.forward on two batches of one signature with different
-    texts (tests/test_device_executor.py's texts at its serving floor)
-    makes the same ops on the same shapes and dtypes, and none of them
-    reads a value back to the host: the CPU proof that a CUDA graph can
-    capture it;
+(a) each stage of SynthesisCore (prologue, refine trip, epilogue) on two
+    batches of one signature with different texts (tests/
+    test_device_executor.py's texts at its serving floor) makes the same
+    ops on the same shapes and dtypes, and none of them reads a value
+    back to the host: the CPU proof that CUDA graphs can capture them;
 (b) the zones of contour_zones give what the per-row contour_segment
     gives on the rows a host picks (the rise, then the fall);
 (c) the staging buffer round-trips every array bit for bit;
-(d) signatures, the 64-entry LRU, release_compiled and the launch
-    counts a capture records;
+(d) signatures (the refine depth is a replay count, not part of one),
+    capture at a signature's second sighting, the 64-entry LRU,
+    release_compiled and the launch counts a capture records;
 (e) the served path (stream, synthesize, CTTSEngine.synthesize_batch)
     runs the compiled core, and on the CPU equals the oracle;
 (f) on a card: graph-served outputs equal the eager core's bit for bit
@@ -102,8 +103,11 @@ HOST_READS = ("aten._local_scalar_dense", "aten.item", "aten.nonzero",
 
 
 def test_forward_launches_depend_only_on_the_signature(db, served):
+    """Each stage of the core (prologue, one refine trip, epilogue) makes
+    the same ops on the same shapes for two batches of one signature, and
+    forward is the prologue, `trips` trips and the epilogue."""
     from ctts_tpu_torch.synth import compiled
-    from ctts_tpu_torch.synth.device import stage_inputs
+    from ctts_tpu_torch.synth.device import refine_depth, stage_inputs
 
     core = served.shards[0].core
     records = []
@@ -112,21 +116,34 @@ def test_forward_launches_depend_only_on_the_signature(db, served):
         sig, _, merged = compiled.signature(core, dims, stacked, shared,
                                             False)
         ar = stage_inputs(merged, CPU)
+        stages = []
         with _Record() as rec:
-            core(dims, ar, sig.trips)
-        records.append((sig, rec.ops))
+            st = core.prologue(dims, ar)
+        stages.append(rec.ops)
+        with _Record() as rec:
+            core.refine_trip(dims, st)
+        stages.append(rec.ops)
+        for _ in range(refine_depth(merged) - 1):
+            core.refine_trip(dims, st)
+        with _Record() as rec:
+            out = core.epilogue(dims, st)
+        stages.append(rec.ops)
+        records.append((sig, stages, ar, out, refine_depth(merged)))
     # The first call uploads the LUT and Hann tables (lru_cache, once
-    # per device): what the warm-up before a capture absorbs.
-    assert any("lift_fresh" in op for op, _, _ in records.pop(0)[1])
-    (sig_a, ops_a), (sig_b, ops_b) = records
-    assert sig_a == sig_b
-    assert len(ops_a) > 500
+    # per device): what a signature's first, eager batch absorbs.
+    assert any("lift_fresh" in op for stage in records.pop(0)[1]
+               for op, _, _ in stage)
+    (sig_a, ops_a, ar, out, trips), (sig_b, ops_b, _, _, _) = records
+    assert sig_a == sig_b and trips >= 1
+    assert min(len(ops) for ops in ops_a) > 100
     assert ops_a == ops_b
-    for op, args, kwargs in ops_a:
+    for op, args, kwargs in (x for ops in ops_a for x in ops):
         assert not op.startswith(HOST_READS), op
         # A copy to another device (.cpu(), .to(device)) names it.
         assert not (op.startswith(("aten._to_copy", "aten.to."))
                     and "device" in dict(kwargs)), (op, kwargs)
+    for got, want in zip(core(sig_a.dims, ar, trips), out):
+        assert torch.equal(got, want)
 
 
 def _sequential_contour(rows, M, W, cnt, do_dsp, qfinal, active, c):
@@ -242,10 +259,11 @@ def test_signatures_lru_and_release(db, served, monkeypatch):
     dims, stacked, shared = _one_bucket(served, PAIR[0])
     sig, _, _ = compiled.signature(core, dims, stacked, shared, False)
     assert released is compiled.release_compiled
-    assert sig.device == "cpu" and sig.dims == dims and sig.trips >= 0
+    assert sig.device == "cpu" and sig.dims == dims
     assert compiled.signature(core, dims, stacked, shared, True)[0] != sig
+    # The refine depth is a replay count, not part of the signature.
     deeper = dict(stacked, refine_trips=stacked["refine_trips"] + 1)
-    assert compiled.signature(core, dims, deeper, shared, False)[0] != sig
+    assert compiled.signature(core, dims, deeper, shared, False)[0] == sig
     wider = dict(shared, cf_values=np.zeros(16, np.int32))
     assert compiled.signature(core, dims, stacked, wider, False)[0] != sig
     half = {k: v[:4] for k, v in stacked.items()}
@@ -254,21 +272,40 @@ def test_signatures_lru_and_release(db, served, monkeypatch):
     assert compiled.signature(other, dims, stacked, shared, False)[0] != sig
 
     compiled.release_compiled()
+    runs = dict(compiled.runs)
+    made = []
+    # First sighting: nothing is made (the batch runs eagerly); second:
+    # made; later: the cached entry.
+    assert compiled.cached(sig, lambda: made.append(0) or "graph") is None
+    assert compiled.cached(sig, lambda: made.append(1) or "graph") == "graph"
+    assert compiled.cached(sig, lambda: made.append(2) or "again") == "graph"
+    assert made == [1]
+    assert [compiled.runs[k] - runs.get(k, 0)
+            for k in ("eager", "capture", "replay")] == [1, 1, 1]
+    compiled.release_compiled()
+    assert compiled.cached(sig, lambda: "x") is None    # seen again
+    compiled.release_compiled()
     made = []
     for i in range(compiled.MAX_GRAPHS + 6):
-        compiled.cached(sig._replace(trips=i), lambda i=i: made.append(i)
-                        or f"graph {i}")
+        key = sig._replace(layout=(i,))
+        compiled.cached(key, lambda: None)
+        compiled.cached(key, lambda i=i: made.append(i) or f"graph {i}")
     assert len(made) == compiled.MAX_GRAPHS + 6
-    assert compiled.cached(sig._replace(trips=10), lambda: "again") \
+    assert compiled.cached(sig._replace(layout=(10,)), lambda: "again") \
         == "graph 10"
     keys = compiled.signatures()
     assert len(keys) == compiled.MAX_GRAPHS
-    assert [k.trips for k in keys[:3]] == [6, 7, 8]      # 0-5 dropped
-    assert keys[-1].trips == 10                         # most recent
+    assert [k.layout for k in keys[:3]] == [(6,), (7,), (8,)]  # 0-5 gone
+    assert keys[-1].layout == (10,)                     # most recent
+    for i in range(compiled.MAX_SEEN + 1):              # seen once only
+        compiled.cached(sig._replace(layout=("once", i)), lambda: "no")
+    assert compiled.cached(sig._replace(layout=("once", 0)),
+                           lambda: "no") is None        # dropped, unseen
     compiled.release_compiled(other)                    # none of its own
     assert len(compiled.signatures()) == compiled.MAX_GRAPHS
     compiled.release_compiled(core)
     assert compiled.signatures() == []
+    compiled.cached(sig, lambda: "x")
     compiled.cached(sig, lambda: "x")
     compiled.release_compiled()
     assert compiled.signatures() == [] and compiled.captured(sig) is None
@@ -324,16 +361,19 @@ def test_served_path_runs_the_compiled_core(db, served, monkeypatch):
 
 @pytest.mark.cuda
 def test_graph_equals_eager_on_the_card(db):
-    """Batches of different texts through the graph (captured once,
-    replayed) and through the eager core, in turns, with the wire codec
-    on and off: equal bit for bit."""
+    """Batches of different texts through the graphs (captured at a
+    signature's second batch, then replayed) and through the eager core,
+    in turns, with the wire codec on and off: equal bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
     from ctts_tpu_torch.synth import compiled
 
     dev = torch.device("cuda")
-    batches = [PAIR[0] * 4, PAIR[1] * 4, BATCHES[1] * 4]
+    # Twice over: a signature's first batch runs eagerly, its second is
+    # captured, later ones replay.
+    batches = [PAIR[0] * 4, PAIR[1] * 4, BATCHES[1] * 4] * 2
+    before = dict(compiled.runs)
     for wire in (True, False):
         graph = BatchSynthesizer(db, config_defaults(), device=dev,
                                  dims_floor=FLOOR, wire=wire)
@@ -346,4 +386,6 @@ def test_graph_equals_eager_on_the_card(db):
             for g, w in zip(got, want):
                 for a, b in zip(g, w):
                     assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert compiled.runs["capture"] > before.get("capture", 0)
+    assert compiled.runs["replay"] > before.get("replay", 0)
     compiled.release_compiled()
