@@ -91,7 +91,20 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      0's gather equal to the unsplit served output, with each
      all_gather's bytes and time;
      the voice bundle saved, loaded on the card and used for one
-     sentence, equal to DeviceVoice's, with both load times.
+     sentence, equal to DeviceVoice's, with both load times;
+  8. the one-sentence path and the bench: CTTSEngine.synthesize of each
+     bench text at 1.0 and 0.5 (execute_plan_torch through the compiled
+     core, a batch of one row), three passes on one engine (eager,
+     capture, replay; the third traced, every kernel's trace count equal
+     to what its graphs recorded times their replays, K6 at 0.5
+     included), passes 2-3 and the eager core equal to pass 1 bit for
+     bit and pass 1 held to the oracle, the warm latency eager vs replay
+     in turns and what a replay spends (plan compile, lowering, the
+     graphs' device time), and the card's reserved memory with those
+     graphs; then
+     `python -m ctts_tpu_torch.bench` in a subprocess, bounded
+     (BENCH_ENV): its line parsed and held to its parity bounds, with no
+     eager run or capture in its timed regions.
 With --kernels-only the script stops after phase 4.
 The script imports nothing of the JAX package: the oracle, the voice
 builder and the plan compiler are the port's own copies. The last line
@@ -108,30 +121,11 @@ import sys
 import tempfile
 import time
 
+# bench.py's serving corpus and the bucket floor of its headline section.
+from ctts_tpu_torch.bench import FLOOR, TEXTS
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# The serving corpus and bucket floor of bench.py (TEXTS, the
-# dims_floor of its headline section).
-TEXTS = [
-    "como vai?",
-    "que legal!",
-    "eu quero café, pão, e manteiga",
-    "bom dia. como vai. tudo bem.",
-    "eu tenho 5 livros",
-    "são 42 pessoas",
-    "a rosa é vermelha",
-    "minha casa é grande",
-    "o rato roeu a roupa do rei de roma",
-    "vamos para a praia",
-    "o brasil é um país muito bonito",
-    "quando chegar em casa, me liga",
-    "preciso comprar coisas para casa",
-    "hoje de manhã eu acordei cedo e fui trabalhar",
-    "isso é incrível!",
-    "onde fica o banco?",
-]
-FLOOR = {"U": 32, "R": 16, "FD": 8, "WREG": 32768, "SMAX": 114688,
-         "CONTW": 28672, "WIN": 2048, "CFMAX": 1024}
 BATCH_MULT = 8
 N_BATCHES = 3
 N_VARIED = 8        # batches of the varied stream (varied_texts)
@@ -1717,6 +1711,205 @@ def run_multi_device(torch, np, hopper, root: str, served,
     return res
 
 
+# Phase 8. The one-sentence path: CTTSEngine.synthesize over the bench
+# texts at these speeds, and eager vs replay latency in this many turns.
+SENTENCE_SPEEDS = (1.0, SYNC_SPEED)
+LATENCY_TURNS = 5
+# The bounded bench: python -m ctts_tpu_torch.bench with these settings.
+BENCH_ENV = {"CTTS_BENCH_ITERS": "2", "CTTS_BENCH_PARAGRAPH": "0",
+             "CTTS_BENCH_1024": "0"}
+PARITY_BOUND = LSB_BOUND / 32768.0
+
+
+@contextlib.contextmanager
+def eager_sentences():
+    """execute_plan_torch runs the eager core while installed (the
+    reference its graphs are held to, and the parent's way of running
+    one sentence, for the timings)."""
+    from ctts_tpu_torch.synth import compiled
+
+    run = compiled.run_batch
+    compiled.run_batch = compiled.run_eager
+    try:
+        yield
+    finally:
+        compiled.run_batch = run
+
+
+def sentence_latency_parts(torch, np, eng, text: str,
+                           reps: int = 21) -> dict:
+    """What a warm replay of one sentence at 1.0 spends: host ms of the
+    plan compile, of the lowering into its bucket, and of the whole
+    synthesize (medians over reps), and the device ms of its graphs
+    (prologue, trips, epilogue; device_ms, queued behind a spin kernel)
+    and the kernel, copy and fill ms of its eager core in a profiler
+    trace (its ~1000 launches do not fit behind one spin)."""
+    from ctts_tpu_torch.synth import compiled
+    from ctts_tpu_torch.synth.device import lower_sentence, refine_depth
+
+    def host_ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    plan = eng.compile(text, 1.0)
+    voice = eng._voice
+    core = voice.core()
+    dims, arrays, shared = lower_sentence(plan, eng.db, voice)
+    sig, layout, merged = compiled.signature(core, dims, arrays, shared,
+                                             False)
+    entry = compiled.captured(sig)
+    if entry is None:
+        raise RuntimeError(f"{text!r}: its graphs were not captured")
+    trips = refine_depth(merged)
+    entry.layout.upload(merged, entry.static_in.device, entry.static_in)
+    ar = layout.upload(merged, entry.static_in.device)
+
+    def replays():
+        entry.prologue.replay()
+        for _ in range(trips):
+            entry.trip.replay()
+        entry.epilogue.replay()
+
+    def synthesize():
+        eng.synthesize(text, 1.0)
+        torch.cuda.synchronize()
+
+    return {"text": text, "compile_ms": host_ms(
+                lambda: eng.compile(text, 1.0)),
+            "lower_ms": host_ms(lambda: lower_sentence(plan, eng.db, voice)),
+            "synthesize_ms": host_ms(synthesize),
+            "graphs_device_ms": device_ms(replays, 5),
+            "eager_profiler_device_ms": sum(
+                float(e["dur"]) for e in device_events(profile_events(
+                    torch, lambda: compiled.batch_core(
+                        core, dims, ar, trips, False))[1])) / 1e3,
+            "trips": trips, "rows": 1}
+
+
+def run_one_sentence(torch, np, hopper, dbp: str) -> dict:
+    """Phase 8a: CTTSEngine.synthesize of each bench text at 1.0 and 0.5,
+    three passes on one engine: the first runs every signature eagerly,
+    the second captures, the third (traced: every kernel's trace count
+    equals what its graphs recorded times their replays, K6 at 0.5
+    included) replays only. Passes 2-3 equal pass 1 bit for bit, and
+    pass 1 equals the eager core and is held to the oracle. Then the warm
+    latency of each text at 1.0, eager and replayed in turns, and the
+    card's reserved memory with these graphs held."""
+    from ctts_tpu_torch.models.engine import CTTSEngine
+    from ctts_tpu_torch.synth import compiled
+
+    eng = CTTSEngine(dbp, device=torch.device("cuda"))
+
+    def one_pass():
+        return [[eng.synthesize(t, sp) for t in TEXTS]
+                for sp in SENTENCE_SPEEDS]
+    try:
+        passes, runs = [], []
+        for _ in range(2):
+            before = dict(compiled.runs)
+            passes.append(one_pass())
+            runs.append({k: compiled.runs[k] - before.get(k, 0)
+                         for k in ("eager", "capture", "replay")})
+        third, launches, runs3 = traced_launches(
+            torch, hopper, one_pass, "the one-sentence replays")
+        with eager_sentences():
+            eager = one_pass()
+        for i, got in enumerate((passes[1], third, eager)):
+            equal_outputs(np, got, passes[0],
+                          f"one sentence: pass {i + 2} vs pass 1"
+                          if i < 2 else "one sentence: eager vs pass 1")
+        n = len(TEXTS) * len(SENTENCE_SPEEDS)
+        if runs3 != {"eager": 0, "capture": 0, "replay": n}:
+            raise RuntimeError(f"one sentence: the third pass was not "
+                               f"replays alone: {runs3}")
+        missing = [m.KERNEL for m in hopper.MODULES
+                   if launches[m.KERNEL] <= 0]
+        if missing:
+            raise RuntimeError(f"one sentence: kernels not launched by the "
+                               f"replays: {missing}")
+        worst = max(held_to_oracle(np, eng.db, eng.config, o, t, sp)
+                    for sp, outs in zip(SENTENCE_SPEEDS, passes[0])
+                    for t, o in zip(TEXTS, outs))
+        lat = {"eager": {t: [] for t in TEXTS},
+               "replay": {t: [] for t in TEXTS}}
+        for turn in range(LATENCY_TURNS):
+            for way in (("eager", "replay") if turn % 2 == 0
+                        else ("replay", "eager")):
+                with (eager_sentences() if way == "eager"
+                      else contextlib.nullcontext()):
+                    for t in TEXTS:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        eng.synthesize(t, 1.0)
+                        lat[way][t].append((time.perf_counter() - t0) * 1e3)
+        medians = {way: [float(np.median(v)) for v in per.values()]
+                   for way, per in lat.items()}
+        breakdown = sentence_latency_parts(torch, np, eng, TEXTS[10])
+        reserved = torch.cuda.memory_reserved()
+        graphs = len(compiled.signatures())
+    finally:
+        eng.close()
+    return {"texts": len(TEXTS), "speeds": list(SENTENCE_SPEEDS),
+            "passes_equal": True, "equal_to_eager": True,
+            "oracle_max_abs_diff": worst,
+            "compiled_runs": runs + [runs3],
+            "launches_third_pass": launches,
+            "launches_per_replay": {k: v / n for k, v in launches.items()},
+            "latency_ms_median_per_text": medians,
+            "latency_ms_median": {way: float(np.median(v))
+                                  for way, v in medians.items()},
+            "latency_parts_ms": breakdown,
+            "replay_over_eager": float(np.median(medians["replay"]))
+            / float(np.median(medians["eager"])),
+            "graphs_captured": graphs, "memory_reserved_bytes": reserved,
+            "memory_reserved_after_close_bytes": torch.cuda.memory_reserved()}
+
+
+def run_bench(np) -> dict:
+    """Phase 8b: `python -m ctts_tpu_torch.bench` in a subprocess at
+    BENCH_ENV; its last line must parse, with backend cuda, a nonzero
+    value, parity and stretch parity within LSB_BOUND of the oracle with
+    equal lengths, the mesh equal to the unsharded stream, and no eager
+    run or capture inside its timed regions."""
+    import subprocess
+
+    env = dict(os.environ, **BENCH_ENV)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ctts_tpu_torch.bench"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines:
+        raise RuntimeError(f"bench: rc {r.returncode}\n{r.stdout[-2000:]}"
+                           f"{r.stderr[-4000:]}")
+    line = json.loads(lines[-1])
+    bad = {k: line.get(k) for k, ok in (
+        ("backend", line.get("backend") == "cuda"),
+        ("value", line.get("value", 0) > 0),
+        ("headline_window_x_realtime_per_chip",
+         line.get("headline_window_x_realtime_per_chip", 0) > 0),
+        ("parity_max_abs_vs_oracle",
+         line.get("parity_max_abs_vs_oracle", 1) <= PARITY_BOUND),
+        ("parity_length_match", line.get("parity_length_match") is True),
+        ("stretch_parity_max_abs_vs_oracle",
+         line.get("stretch_parity_max_abs_vs_oracle", 1) <= PARITY_BOUND),
+        ("stretch_parity_length_match",
+         line.get("stretch_parity_length_match") is True),
+        ("mesh_matches_unsharded", line.get("mesh_matches_unsharded") is True),
+        ("timed_eager_runs", line.get("timed_eager_runs") == 0),
+        ("timed_capture_runs", line.get("timed_capture_runs") == 0))
+        if not ok}
+    if bad:
+        raise RuntimeError(f"bench: {bad}\n{lines[-1]}")
+    return {"env": BENCH_ENV, "wall_s": wall, "line": line}
+
+
 LIBRARY_NONE = {
     "compose": "none: units are placed in sequence, each reading the "
                "last one's write",
@@ -1743,6 +1936,7 @@ def main() -> int:
     from ctts_tpu_torch.ops import hopper
     from ctts_tpu_torch.ops.hopper import build
     from ctts_tpu_torch.plan import native_lower
+    from ctts_tpu_torch.synth import compiled
 
     report = env.report()
     say("env", report)
@@ -1767,6 +1961,12 @@ def main() -> int:
         sl, served, outputs = run_slice(torch, np, hopper, root)
         run_entry_points(torch, np, hopper, root)
         run_multi_device(torch, np, hopper, root, served, outputs)
+        del served, outputs
+        compiled.release_compiled()
+        say("one_sentence", run_one_sentence(
+            torch, np, hopper, os.path.join(root, "voice.db")))
+    compiled.release_compiled()
+    say("bench", run_bench(np))
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "ctts_tpu."))

@@ -7,6 +7,14 @@ card (ctts_tpu_torch.env.device(), which raises when there is none)
 unless the caller passes a device, as the tests pass
 torch.device("cpu"), or a mesh (parallel/mesh.py), over which the batch
 path splits its rows.
+
+Both paths run the compiled core of synth/compiled.py: `synthesize`
+one sentence as a batch of one row on the engine's voice (one core, so
+a sentence whose signature comes back replays its CUDA graphs, as the
+JAX engine reuses `_compiled_core`), `synthesize_batch` through
+BatchSynthesizer. On a card a signature's first call runs eagerly and
+its second is captured; on the CPU both run eagerly. `close` drops the
+engine's graphs.
 """
 
 from __future__ import annotations
@@ -126,10 +134,12 @@ class CTTSEngine:
         self.config.fade_out_ms = fade_out_ms
 
     def close(self) -> None:
-        """Close the voice database and drop the batch path's graphs."""
-        if self._batcher is not None:
-            from ctts_tpu_torch.synth.compiled import release_compiled
+        """Close the voice database and drop the graphs of both paths."""
+        from ctts_tpu_torch.synth.compiled import release_compiled
 
+        if self._voice is not None:
+            release_compiled(self._voice.core())
+        if self._batcher is not None:
             for shard in self._batcher.shards:
                 release_compiled(shard.core)
         self.db.close()

@@ -153,7 +153,7 @@ class BatchSynthesizer:
                 voice = (self.voice if dev == self.device
                          else self.voice.replica(dev))
                 per_device[dev] = Shard(
-                    dev, SynthesisCore(voice),
+                    dev, voice.core(),
                     torch.cuda.Stream(dev) if dev.type == "cuda" else None)
         self.shards = [per_device[dev] for dev in devices]
         self._nl = None
@@ -177,6 +177,13 @@ class BatchSynthesizer:
         same bucket (plan/split.py) and are concatenated back."""
         prepared, spans = self._lower_batch(texts, speed, split)
         return self._finish(self._trim(self._enqueue(prepared)), spans)
+
+    def execute(self, plans):
+        """Synthesize compiled plans (compile_plans), one row each and
+        none split; returns a list of int16 arrays in plan order
+        (ctts_tpu/parallel/batch.py:360-361)."""
+        prepared = self._prepare(list(plans))
+        return self._drain(self._trim(self._enqueue(prepared)))
 
     def stream(self, text_batches, speed: float = 1.0, split: bool = True):
         """Pipelined synthesis over an iterable of text batches

@@ -48,9 +48,11 @@ path after a capture on a CUDA device. On the CPU (asked for
 explicitly, as the tests do) run_batch stages the inputs and runs the
 same stages eagerly (run_eager).
 
-The one-shot path (execute_plan_torch, the CLI's synth) stays eager: a
-graph replayed once would cost a capture on top of the eager run, as
-_compiled_core costs an XLA compile on top of it.
+The one-sentence path (execute_plan_torch) runs here too, as a batch
+of one row without the codec on its voice's one core (the counterpart
+of _compiled_core): a sentence whose signature comes back replays, and
+the CLI's one synth in a fresh process is a first sighting, so it runs
+eagerly and pays no capture.
 """
 
 from __future__ import annotations

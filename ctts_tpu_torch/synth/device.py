@@ -4,7 +4,7 @@ Counterpart of ctts_tpu/synth/device.py: `DeviceVoice` (:588) holds the
 voice bank on the device, `SynthesisCore` runs build_core's pipeline
 (:648-1652, the compose_refine=True branch, WSOLA for speed != 1.0) on
 a batch of lowered plans, and `execute_plan_torch` (:1660) is the
-single-sentence entry. The batch is an explicit leading dimension; the
+single-sentence entry, a batch of one row through synth/compiled.py. The batch is an explicit leading dimension; the
 JAX scans and while-loops are Python loops over batched tensors. The
 Pallas kernels of the path are the Hopper kernels of ops/hopper (on a
 CPU device their plain versions run).
@@ -111,6 +111,14 @@ class DeviceVoice:
         self.gains = torch.tensor(gains, device=self.device)
         self.lengths_np = lengths
         self.ubuf = bank.shape[1]
+
+    def core(self) -> "SynthesisCore":
+        """The voice's one SynthesisCore, made at first use and kept: the
+        calls that share it share its compiled graphs' signatures."""
+        core = getattr(self, "_core", None)
+        if core is None:
+            core = self._core = SynthesisCore(self)
+        return core
 
     def replica(self, device: torch.device) -> "DeviceVoice":
         """This voice with its tensors copied to another device: the
@@ -603,21 +611,38 @@ def warn_overflow(n_ovf: int) -> None:
               "uncompacted", file=sys.stderr)
 
 
-def execute_plan_torch(plan: SynthesisPlan, db: VoiceDatabase,
-                       voice: Optional[DeviceVoice] = None) -> np.ndarray:
-    """Single-sentence entry: lower into a bucket, run, trim, int16
-    (ctts_tpu/synth/device.py:1660 execute_plan_jax). It runs the core
-    eagerly: a graph replayed once would cost a capture on top of the
-    eager run (synth/compiled.py serves the batch path)."""
-    if voice is None:
-        voice = DeviceVoice(db, plan.target_rms)
+def lower_sentence(plan: SynthesisPlan, db: VoiceDatabase,
+                   voice: DeviceVoice) -> tuple:
+    """(dims, arrays, shared tables) of one sentence as a batch of one
+    row in its own bucket: the host half of execute_plan_torch."""
     w = walk_plan(plan, db)
     dplan = fill_device_plan(w, db, bucket_dims(derive_dims(w, db)))
     arrays = {k: np.asarray(v)[None] for k, v in dplan.arrays.items()}
-    arrays.update(shared_plan_values(dplan.arrays, voice.lengths_np,
-                                     dplan.dims))
-    check_zone_capacity(dplan.dims, arrays)
-    out, out_len, ovf = SynthesisCore(voice)(
-        dplan.dims, stage_inputs(arrays, voice.device), refine_depth(arrays))
-    warn_overflow(int(ovf.sum()))
-    return out[0, :int(out_len[0])].cpu().numpy()
+    return dplan.dims, arrays, shared_plan_values(
+        dplan.arrays, voice.lengths_np, dplan.dims)
+
+
+def execute_plan_torch(plan: SynthesisPlan, db: VoiceDatabase,
+                       voice: Optional[DeviceVoice] = None) -> np.ndarray:
+    """Single-sentence entry: lower into a bucket, run, trim, int16
+    (ctts_tpu/synth/device.py:1660 execute_plan_jax). The sentence runs
+    through the compiled core (synth/compiled.py run_batch) as a batch
+    of one row, on the voice's one core and without the wire codec, the
+    counterpart of `_compiled_core` (ctts_tpu/synth/device.py:1654),
+    JAX's lru_cache of one program per bucket: on a CUDA device a
+    signature's first sentence runs eagerly, its second is captured as
+    CUDA graphs and later ones replay them, so a process that speaks
+    sentence after sentence replays one set of graphs per signature; a
+    signature that never comes back (the CLI's one `synth` in a fresh
+    process) pays no capture. On the CPU it runs eagerly."""
+    from ctts_tpu_torch.synth import compiled
+
+    if voice is None:
+        voice = DeviceVoice(db, plan.target_rms)
+    packed, _, out_lens, ovf = compiled.run_batch(
+        voice.core(), *lower_sentence(plan, db, voice), False)
+    # The packed buffer holds the row's valid prefix: its length and the
+    # overflow count come to the host in one copy.
+    n, n_ovf = torch.cat([out_lens, ovf]).cpu().tolist()
+    warn_overflow(n_ovf)
+    return packed[:n].cpu().numpy()

@@ -15,7 +15,14 @@ shape-static core it captures (synth/device.py), on the CPU.
 (e) the served path (stream, synthesize, CTTSEngine.synthesize_batch)
     runs the compiled core, and on the CPU equals the oracle;
 (f) on a card: graph-served outputs equal the eager core's bit for bit
-    over batches of different texts (skipped without one).
+    over batches of different texts (skipped without one);
+(g) the one-sentence path (execute_plan_torch) runs the compiled core
+    as a batch of one row on its voice's one core: two calls share the
+    core and the signature, and on the CPU the output equals run_eager's
+    and is held to the oracle, at 1.0 and 0.5; on a card its replays
+    equal its eager runs (skipped without one);
+(h) BatchSynthesizer.execute(plans) equals synthesize(texts, split=False),
+    and CTTSEngine.close drops the graphs of both its paths.
 """
 
 import numpy as np
@@ -389,3 +396,94 @@ def test_graph_equals_eager_on_the_card(db):
     assert compiled.runs["capture"] > before.get("capture", 0)
     assert compiled.runs["replay"] > before.get("replay", 0)
     compiled.release_compiled()
+
+
+# tests/test_device_executor.py::CASES at 1.0 and 0.5.
+SENTENCES = [("como se chama?", 1.0), ("a rosa azul", 0.5)]
+
+
+@pytest.mark.parametrize("text,speed", SENTENCES)
+def test_one_sentence_path_runs_the_compiled_core(db, monkeypatch, text,
+                                                  speed):
+    from ctts_tpu_torch.synth import compiled
+    from ctts_tpu_torch.synth.device import DeviceVoice, execute_plan_torch
+
+    calls = []
+    run = compiled.run_batch
+
+    def recorded(core, dims, arrays, shared, wire):
+        calls.append((core, compiled.signature(core, dims, arrays, shared,
+                                               wire)[0],
+                      compiled.run_eager(core, dims, arrays, shared, wire)))
+        return run(core, dims, arrays, shared, wire)
+
+    monkeypatch.setattr(compiled, "run_batch", recorded)
+    voice = DeviceVoice(db, device=CPU)
+    plan = compile_plan(db, text, config_defaults(), None, speed)
+    outs = [execute_plan_torch(plan, db, voice) for _ in range(2)]
+    (core_a, sig_a, eager), (core_b, sig_b, _) = calls
+    assert core_a is core_b is voice.core()
+    assert sig_a == sig_b and sig_a.core == core_a._graph_token
+    assert sig_a.wire is False and sig_a.dims.stretch == (speed != 1.0)
+    assert dict((n, s) for n, _, s in sig_a.layout)["speed"] == (1,)
+    packed, classes, lens, _ = eager
+    assert classes is None
+    want = packed[:int(lens[0])].numpy()
+    ref = execute_plan_oracle(plan, db)
+    for got in outs:
+        assert got.dtype == np.int16 and np.array_equal(got, want)
+        assert _max_diff(got, ref) <= 2
+
+
+def test_execute_equals_synthesize(db):
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+
+    bs = BatchSynthesizer(db, config_defaults(), device=CPU)
+    texts = BATCHES[1] + ["como se chama?"]
+    got = bs.execute(bs.compile_plans(texts))
+    want = bs.synthesize(texts, split=False)
+    assert len(got) == len(want) == len(texts)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int16 and np.array_equal(g, w)
+
+
+def test_engine_close_drops_both_paths_graphs(db, monkeypatch):
+    from ctts_tpu_torch.models.engine import CTTSEngine
+    from ctts_tpu_torch.synth import compiled
+
+    released = []
+    monkeypatch.setattr(compiled, "release_compiled", released.append)
+    eng = CTTSEngine(db.path, device=CPU)
+    eng.synthesize("como vai")
+    eng.synthesize_batch(["como vai"])
+    voice_core = eng._voice.core()
+    batch_core = eng._batcher.shards[0].core
+    eng.close()
+    assert released == [voice_core, batch_core]
+    assert voice_core is not batch_core
+
+
+@pytest.mark.cuda
+def test_one_sentence_replay_equals_eager_on_the_card(db):
+    """Each sentence three times on one voice (eager, capture, replay)
+    and through the eager core: equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ctts_tpu_torch.synth import compiled
+    from ctts_tpu_torch.synth.device import DeviceVoice, execute_plan_torch
+
+    voice = DeviceVoice(db, device=torch.device("cuda"))
+    before = dict(compiled.runs)
+    for text, speed in SENTENCES:
+        plan = compile_plan(db, text, config_defaults(), None, speed)
+        outs = [execute_plan_torch(plan, db, voice) for _ in range(3)]
+        run = compiled.run_batch
+        compiled.run_batch = compiled.run_eager
+        try:
+            want = execute_plan_torch(plan, db, voice)
+        finally:
+            compiled.run_batch = run
+        for got in outs:
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert compiled.runs["replay"] - before.get("replay", 0) >= 2
+    compiled.release_compiled(voice.core())

@@ -1,7 +1,8 @@
 """ctts_tpu_torch must import on a machine without JAX or ctts_tpu.
 
-A fresh interpreter imports every module of the package and
-chip_smoke.py, and neither jax nor any module of the JAX package
+A fresh interpreter imports every module of the package (the bench,
+ctts_tpu_torch.bench, among them), chip_smoke.py and the port's tools
+(tools/torch_*.py), and neither jax nor any module of the JAX package
 (ctts_tpu, ctts_tpu.*) may have been loaded by any of them."""
 
 import os
@@ -19,6 +20,14 @@ names = [m.name for m in pkgutil.walk_packages(ctts_tpu_torch.__path__,
 # package that walk_packages enters; its binding is imported by name.
 for name in names + ["ctts_tpu_torch.runtime.native", "chip_smoke"]:
     importlib.import_module(name)
+assert "ctts_tpu_torch.bench" in names
+import glob, importlib.util, os
+tools = sorted(glob.glob(os.path.join("tools", "torch_*.py")))
+assert "tools/torch_profile_stages.py" in tools, tools
+for path in tools:
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 jax_pkg = sorted(m for m in sys.modules
                  if m == "ctts_tpu" or m.startswith("ctts_tpu."))
@@ -32,4 +41,4 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 55    # every module was reached
+    assert int(r.stdout.split()[-1]) >= 56    # every module was reached
