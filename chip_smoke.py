@@ -104,7 +104,15 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      graphs; then
      `python -m ctts_tpu_torch.bench` in a subprocess, bounded
      (BENCH_ENV): its line parsed and held to its parity bounds, with no
-     eager run or capture in its timed regions.
+     eager run or capture in its timed regions;
+  9. the configuration keys: the default and each of remove_dc_offset:
+     0, min_silence_ms: 0, fade_in_ms: 300, fade_out_ms: 400,
+     word_pause_ms: 0 and crossfade_ms: 200 alone, on the speed-1.0 texts of
+     tests/test_device_executor.py::CASES at 1.0 and 1.5, as one served
+     batch and one sentence at a time, each through three passes (eager,
+     capture, replay): replays equal to the eager pass bit for bit, the
+     eager pass held to the oracle; min_silence_ms: 0 must be refused at
+     lowering with a ValueError naming the key, on both paths.
 With --kernels-only the script stops after phase 4.
 The script imports nothing of the JAX package: the oracle, the voice
 builder and the plan compiler are the port's own copies. The last line
@@ -1910,6 +1918,130 @@ def run_bench(np) -> dict:
     return {"env": BENCH_ENV, "wall_s": wall, "line": line}
 
 
+# Phase 9. The configuration keys where the JAX package departs from the
+# C reference (ROADMAP Queue C), each set alone, and the default: the
+# speed-1.0 texts of tests/test_device_executor.py::CASES at these
+# speeds. The port refuses min_silence_ms under 10 samples at lowering;
+# crossfade_ms 200 makes CFMAX wider than the unit bank (compose then
+# takes contributions CFMAX wide).
+CONFIG_CELLS = [("default", {}),
+                ("remove_dc_offset: 0", {"remove_dc_offset": False}),
+                ("min_silence_ms: 0", {"min_silence_ms": 0.0}),
+                ("fade_in_ms: 300", {"fade_in_ms": 300.0}),
+                ("fade_out_ms: 400", {"fade_out_ms": 400.0}),
+                ("word_pause_ms: 0", {"word_pause_ms": 0.0}),
+                ("crossfade_ms: 200", {"crossfade_ms": 200.0})]
+CONFIG_REFUSED = {"min_silence_ms: 0"}
+CONFIG_TEXTS = ["como vai", "que legal!", "como se chama?",
+                "bom dia. tudo bem.", "oi xz oi"]
+CONFIG_SPEEDS = (1.0, STRETCH_SPEED)
+
+
+def run_config_cells(torch, np, dbp: str) -> dict:
+    """Phase 9: for each CONFIG_CELLS setting and speed, CONFIG_TEXTS
+    through BatchSynthesizer.synthesize (one batch in the bench's bucket,
+    served: graphs and the wire codec) and through execute_plan_torch one
+    sentence at a time (a voice's one core), three passes each, the
+    graphs released before each setting: every signature's first
+    sighting runs eagerly, its second is captured, the third pass is
+    replays alone, as compiled.runs counts (texts that share a bucket
+    share a signature, so one pass may hold all three). Every pass equals
+    the eager core's output (the eager twin, eager_sentences) bit for
+    bit, and that is held to the oracle (equal lengths, <= LSB_BOUND). A
+    refused value must raise ValueError naming its key, on both paths.
+    Each cell records the fade passes of its signatures
+    (plan_arrays.fade_passes: 0 for fades kept in their windows)."""
+    from ctts_tpu_torch.config import config_defaults
+    from ctts_tpu_torch.db.reader import VoiceDatabase
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+    from ctts_tpu_torch.plan.compiler import compile_plan
+    from ctts_tpu_torch.synth import compiled
+    from ctts_tpu_torch.synth.device import DeviceVoice, execute_plan_torch
+
+    db = VoiceDatabase(dbp)
+    dev = torch.device("cuda")
+    kinds = ("eager", "capture", "replay")
+    cells = []
+    t_phase = time.perf_counter()
+    for name, keys in CONFIG_CELLS:
+        compiled.release_compiled()
+        voice = DeviceVoice(db, device=dev)
+        cfg = config_defaults()
+        for k, v in keys.items():
+            setattr(cfg, k, v)
+        if name in CONFIG_REFUSED:
+            plan = compile_plan(db, CONFIG_TEXTS[0], cfg, None, 1.0)
+            errors = []
+            for call in (lambda: BatchSynthesizer(db, cfg, device=dev),
+                         lambda: execute_plan_torch(plan, db, voice)):
+                try:
+                    call()
+                except ValueError as e:
+                    errors.append(str(e))
+                else:
+                    raise RuntimeError(f"{name}: not refused")
+            if not all(k in e for e in errors for k in keys):
+                raise RuntimeError(f"{name}: the refusal does not name "
+                                   f"its key: {errors}")
+            cells.append({"setting": name, "refused": errors[0]})
+            continue
+        bs = BatchSynthesizer(db, cfg, device=dev, dims_floor=FLOOR)
+        twin = eager_twin(BatchSynthesizer(db, cfg, device=dev,
+                                           dims_floor=FLOOR))
+        for speed in CONFIG_SPEEDS:
+            refs = [oracle(db, cfg, t, speed) for t in CONFIG_TEXTS]
+
+            def sentences():
+                return [execute_plan_torch(compile_plan(db, t, cfg, None,
+                                                        speed), db, voice)
+                        for t in CONFIG_TEXTS]
+
+            def eager_of(run):
+                with eager_sentences():
+                    return run()
+            ways = {"batch": (lambda: bs.synthesize(CONFIG_TEXTS,
+                                                    speed=speed),
+                              lambda: twin.synthesize(CONFIG_TEXTS,
+                                                      speed=speed)),
+                    "sentence": (sentences, lambda: eager_of(sentences))}
+            for way, (run, eager_run) in ways.items():
+                what = f"{name} {way} at {speed}"
+                seen = set(compiled.signatures())
+                outs, runs, walls = [], [], []
+                for _ in kinds:
+                    before = dict(compiled.runs)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs.append(run())
+                    walls.append(time.perf_counter() - t0)
+                    runs.append({k: compiled.runs[k] - before.get(k, 0)
+                                 for k in kinds})
+                new = [sig for sig in compiled.signatures()
+                       if sig not in seen]
+                total = {k: sum(r[k] for r in runs) for k in kinds}
+                if (runs[2]["eager"] or runs[2]["capture"]
+                        or not runs[2]["replay"] or not new
+                        or total["eager"] != len(new)
+                        or total["capture"] != len(new)):
+                    raise RuntimeError(f"{what}: runs {runs} for "
+                                       f"{len(new)} new signatures")
+                eager = eager_run()
+                equal_outputs(np, outs, [eager] * len(kinds),
+                              f"{what}: passes vs the eager core")
+                worst = max(held_to(np, o, ref, f"{what}: {t!r}")
+                            for t, o, ref in zip(CONFIG_TEXTS, eager, refs))
+                cells.append({
+                    "setting": name, "speed": speed, "way": way,
+                    "oracle_max_abs_diff": worst, "passes_equal_eager": True,
+                    "signatures": len(new), "compiled_runs": runs,
+                    "wall_s": walls,
+                    "fade_passes": sorted({sig.fades for sig in new})})
+        bs = twin = voice = None
+    compiled.release_compiled()
+    return {"texts": CONFIG_TEXTS, "speeds": list(CONFIG_SPEEDS),
+            "cells": cells, "phase_s": time.perf_counter() - t_phase}
+
+
 LIBRARY_NONE = {
     "compose": "none: units are placed in sequence, each reading the "
                "last one's write",
@@ -1954,7 +2086,7 @@ def main() -> int:
     say("ieee", check_ieee(torch, np))
     kern = check_kernels(torch, np, hopper)
     if "--kernels-only" in sys.argv[1:]:
-        print("chip_smoke.py: --kernels-only, phases 5-7 skipped",
+        print("chip_smoke.py: --kernels-only, phases 5-9 skipped",
               flush=True)
         return 0
     with tempfile.TemporaryDirectory() as root:
@@ -1965,6 +2097,8 @@ def main() -> int:
         compiled.release_compiled()
         say("one_sentence", run_one_sentence(
             torch, np, hopper, os.path.join(root, "voice.db")))
+        say("config_cells", run_config_cells(
+            torch, np, os.path.join(root, "voice.db")))
     compiled.release_compiled()
     say("bench", run_bench(np))
 

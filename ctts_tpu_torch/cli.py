@@ -146,6 +146,15 @@ def main(argv: list[str] | None = None) -> int:
         if len(args) <= 5 and config.default_speed != 1.0:
             speed = config.default_speed
 
+        if executor != "oracle":
+            from ctts_tpu_torch.synth.plan_arrays import check_config
+
+            try:
+                check_config(config)
+            except ValueError as e:
+                print(f"Config refused: {e}", file=sys.stderr)
+                return 1
+
         print(f"Loaded database with {db.unit_count} units")
         print(
             f"Config: crossfade={config.crossfade_ms:.1f}ms "

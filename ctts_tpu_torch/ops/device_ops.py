@@ -11,6 +11,8 @@ sums give the same bits. Numerics follow the reference's int16 lattice
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ctts_tpu_torch.constants import SAMPLE_RATE
@@ -385,15 +387,23 @@ def contour_zones(rows: torch.Tensor, margin: int, region: torch.Tensor,
 
 
 def tail_fade_window(buf: torch.Tensor, end: torch.Tensor,
-                     fade_len: torch.Tensor, W2: int) -> torch.Tensor:
+                     fade_len: torch.Tensor, W2: int,
+                     before: Optional[torch.Tensor] = None) -> torch.Tensor:
     """apply_fade_out on buf[..end) with the lookup confined to the
     W2-wide window ending at `end` (ctts.c:3028-3039);
     ctts_tpu/ops/device_ops.py:756. buf [n, W], end and fade_len [n];
-    buf is updated in place (a row with fade_len 0 keeps its values)."""
+    buf is updated in place (a row with fade_len 0 keeps its values).
+    With `before` [n], the samples that precede each row in its buffer,
+    the fade is min(fade_len, before + end) long, as apply_fade_out
+    makes it over the whole buffer, and its part inside the row is
+    applied (W2 must cover min(fade_len, end))."""
     n, W = buf.shape
     i2 = torch.arange(W2, device=buf.device)
     end = end.long()
-    fade = torch.clamp(torch.minimum(fade_len.long(), end), max=W2)
+    if before is None:
+        fade = torch.clamp(torch.minimum(fade_len.long(), end), max=W2)
+    else:
+        fade = torch.minimum(fade_len.long(), end + before.long())
     start = end - fade
     woff = torch.clamp(end - W2, min=0)
     ia = woff[:, None] + i2                                     # [n, W2]

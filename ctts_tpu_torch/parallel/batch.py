@@ -75,9 +75,11 @@ from ctts_tpu_torch.synth.device import (
 from ctts_tpu_torch.synth.plan_arrays import (
     PlanDims,
     bucket_dims,
+    check_config,
     derive_dims,
     fill_device_plan,
     shared_plan_values,
+    split_keeps_fades,
     walk_plan,
 )
 from ctts_tpu_torch.text.rules import NormalizationRules
@@ -128,6 +130,7 @@ class BatchSynthesizer:
         native_plans: bool = True,
         device: Optional[torch.device] = None,
     ):
+        check_config(config)
         device = first_device(mesh, device)
         self.db = db
         self.config = config
@@ -174,7 +177,9 @@ class BatchSynthesizer:
                    split: bool = True):
         """Synthesize a batch; returns a list of int16 arrays in input
         order. Long inputs split at sentence boundaries into rows of the
-        same bucket (plan/split.py) and are concatenated back."""
+        same bucket (plan/split.py) and are concatenated back, where the
+        configuration's fades stay inside the rows
+        (plan_arrays.split_keeps_fades)."""
         prepared, spans = self._lower_batch(texts, speed, split)
         return self._finish(self._trim(self._enqueue(prepared)), spans)
 
@@ -229,6 +234,7 @@ class BatchSynthesizer:
     def _lower_batch(self, texts, speed: float, split: bool):
         """(prepared, spans): rows lowered and stacked per bucket, and the
         [start, end) row range of every input text."""
+        split = split and split_keeps_fades(self.config)
         if self._nl is not None:
             return self._prepare_native(texts, speed, split)
         plans = self.compile_plans(texts, speed)

@@ -8,7 +8,11 @@ split_plan -> walk_plan -> derive_dims -> fill_device_plan), built by
 Unlike the JAX package's loader, a failed `make` or a missing or
 unloadable library raises (after a few retries that cover a concurrent
 build): a stale library would be wrong and no parity test would see
-it.
+it. The library refuses a fade longer than the bucket's margin, which
+the port's core no longer needs (synth/plan_arrays.py fade_widths): the
+binding lowers with fade_out_ms 0 and writes the configuration's fade
+length into the slots the walk recorded, and refuses what
+plan_arrays.check_config refuses.
 """
 
 from __future__ import annotations
@@ -20,8 +24,13 @@ from typing import Sequence
 import numpy as np
 
 from ctts_tpu_torch.config import CTTSConfig
+from ctts_tpu_torch.plan.compiler import ms_to_samples
 from ctts_tpu_torch.runtime.native import make_and_open
-from ctts_tpu_torch.synth.plan_arrays import PlanDims
+from ctts_tpu_torch.synth.plan_arrays import (
+    PlanDims,
+    check_config,
+    fade_widths,
+)
 
 _SO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "runtime", "libctts.so")
@@ -141,11 +150,15 @@ class NativeLowerer:
     """One native lowering handle per synthesizer (not thread-safe)."""
 
     def __init__(self, db_path: str, config: CTTSConfig, rules=None):
+        check_config(config)
         lib = _load()
         self._lib = lib
+        # Every FADE_TAIL is fade_out_ms long: the walk runs with 0 and
+        # fill_into writes the length back (the module docstring).
+        self._fade = ms_to_samples(config.fade_out_ms)
         cc = _CConfig()
         for name, ctype in _CConfig._fields_:
-            v = getattr(config, name)
+            v = 0.0 if name == "fade_out_ms" else getattr(config, name)
             setattr(cc, name, int(v) if ctype is ctypes.c_int else float(v))
         self._h = lib.ctl_open(db_path.encode(), ctypes.byref(cc))
         if not self._h:
@@ -206,7 +219,7 @@ class NativeLowerer:
             dims_list.append(PlanDims(
                 U=o[0], R=o[1], FD=o[2], NSHIFT=o[3], WREG=o[4],
                 MARGIN=o[5], UBUF=o[6], WIN=o[7], CFMAX=o[8], SMAX=o[9],
-                OMAX=o[10], CONTW=o[11], FADEW=o[12], FADE2W=o[13],
+                OMAX=o[10], CONTW=o[11], **fade_widths(self._fade),
                 fade_in_samples=o[14], min_silence_samples=o[15],
                 remove_dc=bool(o[16]), stretch=bool(o[17]),
                 synth_hop=o[18], contour_drift=o[19],
@@ -228,10 +241,13 @@ class NativeLowerer:
 
     def fill_into(self, row: int, dims: PlanDims, stacked: dict,
                   slot: int) -> None:
-        """Fill one lowered row into batch slot `slot` (bucketed dims)."""
+        """Fill one lowered row into batch slot `slot` (bucketed dims):
+        the library's arrays, with the fade length in every fade slot
+        the walk recorded (fade_pos >= 0) and in every region that runs
+        its word DSP (a FADE_TAIL follows each WORD_DSP)."""
         bd = (ctypes.c_int32 * 8)(dims.U, dims.R, dims.FD, dims.NSHIFT,
                                   dims.MARGIN, dims.UBUF, dims.CONTW,
-                                  dims.FADEW)
+                                  min(dims.FADEW, dims.MARGIN))
         ptrs = (ctypes.c_void_p * len(_MANIFEST))(*[
             stacked[name].ctypes.data + slot * stacked[name].strides[0]
             for name, _, _ in _MANIFEST
@@ -239,3 +255,7 @@ class NativeLowerer:
         rc = self._lib.ctl_fill_row(self._h, row, bd, ptrs)
         if rc != 0:
             raise RuntimeError(f"ctl_fill_row failed: {rc} (row {row})")
+        stacked["fade_len"][slot] = np.where(
+            stacked["fade_pos"][slot] >= 0, self._fade, 0)
+        stacked["region_fade_after"][slot] = np.where(
+            stacked["region_do_dsp"][slot], self._fade, 0)

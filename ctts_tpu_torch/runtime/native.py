@@ -161,6 +161,12 @@ class NativeEngine:
         return self._lib.ctn_db_find_unit(self._db, text, len(text))
 
     def execute(self, plan: SynthesisPlan) -> np.ndarray:
+        """The plan's samples; raises ValueError on a configuration the
+        port refuses (synth/plan_arrays.check_config: there the engine's
+        in-place silence removal writes past the word it reads)."""
+        from ctts_tpu_torch.synth.plan_arrays import check_config
+
+        check_config(plan.config)
         kind, arg0, arg1, flags = pack_plan(plan)
         cfg = plan.config
         inton = plan.prosody.intonation

@@ -18,7 +18,10 @@ arrays before staging; the counterpart of the while_loop of ctts_tpu/
 synth/device.py:1186-1214, whose trip count XLA reads on the device),
 then the epilogue. The signature is the core's voice and device, the
 bucket dims, the layout of the staged arrays (which fixes the batch size
-and the shared-table lengths) and the wire flag.
+and the shared-table lengths), the wire flag and how the batch's fades
+run (plan_arrays.fade_passes, read from the host arrays like the trip
+count: where a configuration's fades reach back past their regions,
+the epilogue holds more passes of its fade and silence-table stages).
   - inputs: the graphs read one static device byte buffer; a batch's
     arrays are packed into one pinned host buffer and reach it in one
     copy (Staging.upload);
@@ -73,7 +76,7 @@ from ctts_tpu_torch.synth.device import (
     check_zone_capacity,
     refine_depth,
 )
-from ctts_tpu_torch.synth.plan_arrays import PlanDims
+from ctts_tpu_torch.synth.plan_arrays import PlanDims, fade_passes
 
 MAX_GRAPHS = 64   # the lru_cache size of _compiled_batch_core
 MAX_SEEN = 4 * MAX_GRAPHS
@@ -108,17 +111,17 @@ def _pack_encode(out, out_lens, ovf, wire: bool):
 
 
 def batch_epilogue(core: SynthesisCore, dims: PlanDims, st: dict,
-                   wire: bool):
+                   wire: bool, fades: int = 0):
     """What the epilogue graph covers: the core's epilogue, pack and
     encode."""
-    return _pack_encode(*core.epilogue(dims, st), wire)
+    return _pack_encode(*core.epilogue(dims, st, fades), wire)
 
 
 def batch_core(core: SynthesisCore, dims: PlanDims, ar: dict, trips: int,
-               wire: bool):
+               wire: bool, fades: int = 0):
     """What a signature's graphs cover, op by op: the core, pack and
-    encode."""
-    return _pack_encode(*core(dims, ar, trips), wire)
+    encode (`fades`: plan_arrays.fade_passes of the batch)."""
+    return _pack_encode(*core(dims, ar, trips, fades), wire)
 
 
 def _inputs(dims: PlanDims, arrays: dict, shared: dict) -> dict:
@@ -135,7 +138,8 @@ def run_eager(core: SynthesisCore, dims: PlanDims, arrays: dict,
     to)."""
     merged = _inputs(dims, arrays, shared)
     ar = Staging(merged).upload(merged, core.bank.device)
-    return batch_core(core, dims, ar, refine_depth(merged), wire)
+    return batch_core(core, dims, ar, refine_depth(merged), wire,
+                      fade_passes(dims, merged))
 
 
 class Signature(NamedTuple):
@@ -144,6 +148,7 @@ class Signature(NamedTuple):
     dims: PlanDims
     layout: tuple        # Staging.key(): names, dtypes and shapes
     wire: bool
+    fades: int           # plan_arrays.fade_passes: how the fades run
 
 
 class CapturedCore:
@@ -166,7 +171,8 @@ class CapturedCore:
         self.trip, self.trip_launches, _ = _capture(
             dev, lambda: core.refine_trip(dims, st))
         self.epilogue, epi, self.outputs = _capture(
-            dev, lambda: batch_epilogue(core, dims, st, sig.wire))
+            dev, lambda: batch_epilogue(core, dims, st, sig.wire,
+                                        sig.fades))
         # The stage state lives from the prologue's replay to the
         # epilogue's, which nothing else interleaves with: once no tensor
         # holds it, later captures may reuse its memory.
@@ -242,7 +248,7 @@ def signature(core: SynthesisCore, dims: PlanDims, arrays: dict,
     merged = _inputs(dims, arrays, shared)
     layout = Staging(merged)
     sig = Signature(_token(core), str(core.bank.device), dims, layout.key(),
-                    bool(wire))
+                    bool(wire), fade_passes(dims, merged))
     return sig, layout, merged
 
 
@@ -288,7 +294,7 @@ def run_batch(core: SynthesisCore, dims: PlanDims, arrays: dict,
         entry = cached(sig, lambda: CapturedCore(core, sig, layout))
         if entry is None:
             return batch_core(core, dims, layout.upload(merged, dev), trips,
-                              wire)
+                              wire, sig.fades)
         return entry.replay(merged, trips)
 
 

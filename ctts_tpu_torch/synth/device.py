@@ -240,11 +240,11 @@ class SynthesisCore(nn.Module):
         self.ubuf = voice.ubuf
 
     @torch.no_grad()
-    def forward(self, dims: PlanDims, ar: dict, trips: int):
+    def forward(self, dims: PlanDims, ar: dict, trips: int, fades: int = 0):
         st = self.prologue(dims, ar)
         for _ in range(trips):
             self.refine_trip(dims, st)
-        return self.epilogue(dims, st)
+        return self.epilogue(dims, st, fades)
 
     @torch.no_grad()
     def prologue(self, dims: PlanDims, ar: dict) -> dict:
@@ -281,20 +281,31 @@ class SynthesisCore(nn.Module):
         st["it"].add_(1)
 
     @torch.no_grad()
-    def epilogue(self, dims: PlanDims, st: dict):
+    def epilogue(self, dims: PlanDims, st: dict, fades: int = 0):
         """The final compose and everything after it: (out, out_len,
-        ovf)."""
+        ovf). `fades` is plan_arrays.fade_passes of the batch: 0 fades
+        each in-region window where it lies; n >= 1 runs the fades and
+        the silence tables n times and applies the parts of the fades
+        that reach back past their regions on the assembled sentence."""
         ar = st["ar"]
         bufs, _, _ = self._compose(dims, ar, st["contrib_fn"](st["heads"]),
                                    st["fo"], False)
-        bufs = self._tail_fades(dims, ar, bufs)
-        starts, dst, seg_lens, comp_lens, ovf = self._seg_tables(
-            dims, ar, bufs)
+        if fades:
+            tables = self._reaching_fades(dims, ar, bufs, fades)
+        else:
+            bufs = self._tail_fades(dims, ar, bufs)
+            tables = self._seg_tables(dims, ar, bufs)
+        starts, dst, seg_lens, comp_lens, ovf = tables
         bufs = compact(bufs, starts, dst, seg_lens, dims.WREG)
         bufs = bufs.reshape(-1, dims.R, dims.WREG)
         bufs = self._contour(dims, ar, bufs, comp_lens)
-        bufs = self._region_post(dims, ar, bufs, comp_lens)
-        out, out_len = self._assemble(dims, ar, bufs, comp_lens)
+        new_lens, offsets, total_len = self._layout(ar, comp_lens)
+        bufs = self._region_post(dims, ar, bufs, comp_lens, offsets)
+        out, out_len = self._assemble(dims, ar, bufs, new_lens, offsets,
+                                      total_len)
+        if fades:
+            out = self._fades_before_regions(dims, ar, out, comp_lens,
+                                             offsets)
         if dims.stretch:
             out, out_len = time_stretch(out, out_len, ar["speed"], dims.OMAX,
                                         dims.synth_hop)
@@ -306,9 +317,13 @@ class SynthesisCore(nn.Module):
         """base[b, k] = q16(bank[uid] * gain[uid]) [B, U, UBUF] and the
         trip-invariant crossfade curves fo, fi [B, U, CFMAX], evaluated
         once per distinct crossfade length of the batch (cf_values) and
-        picked per unit."""
+        picked per unit. A bucket whose CFMAX is wider than the bank (a
+        crossfade longer than the longest unit: it is cut to the unit's
+        length) gets base zero-padded to CFMAX columns."""
         uid = ar["_uid"]
         base = q16(self.bank[uid] * self.gains[uid][..., None])
+        if dims.CFMAX > self.ubuf:
+            base = torch.nn.functional.pad(base, (0, dims.CFMAX - self.ubuf))
         it = torch.arange(dims.CFMAX, device=base.device).to(F32)
         cfv = ar["cf_values"].long()
         tmixv = it[None, :] * (1.0 / torch.clamp(cfv, min=1).to(F32))[:, None]
@@ -368,8 +383,10 @@ class SynthesisCore(nn.Module):
     def _make_contrib_fn(self, dims, ar, base, fi):
         """Per-unit contributions [B, U, UBUF] from the current heads:
         everything past the first CFMAX columns is trip-invariant except
-        the scalar DC shift, so only the head chain is recomputed."""
-        CFMAX, UBUF = dims.CFMAX, self.ubuf
+        the scalar DC shift, so only the head chain is recomputed. With
+        remove_dc off (a static branch) no DC is taken out; a fade-in
+        longer than CFMAX also fades the body columns it covers."""
+        CFMAX, UBUF = dims.CFMAX, base.shape[-1]
         dev = base.device
         n = ar["_n"][..., None]
         active = ar["_active"][..., None]
@@ -378,9 +395,11 @@ class SynthesisCore(nn.Module):
         iu = torch.arange(UBUF, device=dev)
         ih = torch.arange(CFMAX, device=dev)
         body = (iu >= CFMAX) & (iu < n)
-        tail_total = torch.where(body, base, 0.0).to(torch.int32).sum(-1)
+        if dims.remove_dc:
+            tail_total = torch.where(body, base, 0.0).to(torch.int32).sum(-1)
 
-        FW = min(-(-dims.fade_in_samples // 128) * 128, CFMAX)
+        # apply_fade_in fades min(fade_in_samples, n) samples of a unit.
+        FW = min(-(-dims.fade_in_samples // 128) * 128, UBUF)
         ifw = torch.arange(FW, device=dev)
         fade = torch.clamp(n, max=dims.fade_in_samples)          # [B, U, 1]
         fv = ar["fade_values"].long()
@@ -393,25 +412,37 @@ class SynthesisCore(nn.Module):
         keep_h = live_h & active
         mix_h = (ih < cf_in) & ~fade_in
         body_live = body & active
+        HF = min(FW, CFMAX)
+        if FW > CFMAX:
+            fade_body = in_fade[..., CFMAX:] & fade_in
 
         def contrib_fn(heads):
-            head_total = torch.where(live_h, heads, 0.0).to(
-                torch.int32).sum(-1)
-            total = head_total + tail_total
-            dc = torch.sign(total) * torch.div(
-                torch.abs(total), torch.clamp(n[..., 0], min=1),
-                rounding_mode="floor")
-            dcf = dc.to(F32)[..., None]
-            xh = torch.where(live_h, torch.clamp(heads - dcf, -32768.0,
-                                                 32767.0), heads)
-            hf = xh[..., :FW]
-            hf = torch.where(in_fade, trunc16(hf * fade_gain), hf)
-            xh = torch.where(fade_in, torch.cat([hf, xh[..., FW:]], -1), xh)
+            if dims.remove_dc:
+                head_total = torch.where(live_h, heads, 0.0).to(
+                    torch.int32).sum(-1)
+                total = head_total + tail_total
+                dc = torch.sign(total) * torch.div(
+                    torch.abs(total), torch.clamp(n[..., 0], min=1),
+                    rounding_mode="floor")
+                dcf = dc.to(F32)[..., None]
+                xh = torch.where(live_h, torch.clamp(heads - dcf, -32768.0,
+                                                     32767.0), heads)
+                out = torch.where(body_live, torch.clamp(
+                    base - dcf, -32768.0, 32767.0), 0.0)
+            else:
+                xh = heads
+                out = torch.where(body_live, base, 0.0)
+            hf = xh[..., :HF]
+            hf = torch.where(in_fade[..., :HF],
+                             trunc16(hf * fade_gain[..., :HF]), hf)
+            xh = torch.where(fade_in, torch.cat([hf, xh[..., HF:]], -1), xh)
             xh = torch.where(mix_h, xh * fi, xh)
             xh = torch.where(keep_h, xh, 0.0)
-            out = torch.where(body_live, torch.clamp(base - dcf, -32768.0,
-                                                     32767.0), 0.0)
             out[..., :CFMAX] = xh
+            if FW > CFMAX:
+                bf = out[..., CFMAX:FW]
+                out[..., CFMAX:FW] = torch.where(
+                    fade_body, trunc16(bf * fade_gain[..., CFMAX:]), bf)
             return out
 
         return contrib_fn
@@ -482,8 +513,9 @@ class SynthesisCore(nn.Module):
 
     def _tail_fades(self, dims, ar, bufs):
         """Punctuation fades as FADEW-wide window patches, in slot order,
-        in place. An unused slot (fade_pos < 0, fade_len 0) writes its
-        window back unchanged."""
+        in place, where plan_arrays.fade_passes proved each stays in its
+        window (fades = 0). An unused slot (fade_pos < 0, fade_len 0)
+        writes its window back unchanged."""
         jf = torch.arange(dims.FADEW, device=bufs.device)
         for k in range(dims.FD):
             fpos = ar["fade_pos"][:, k].long()
@@ -500,6 +532,98 @@ class SynthesisCore(nn.Module):
             bufs.scatter_(1, idx, torch.where(
                 in_fade, trunc16(win * sine_fade_gain(t)), win))
         return bufs
+
+    # -- fades that reach back past their regions (reference/ctts.c:
+    #    3028-3039 on the whole buffer) --------------------------------------
+
+    def _reaching_fades(self, dims, ar, bufs, passes):
+        """The in-region fades and the silence tables when a fade may
+        reach back past its region (plan_arrays.fade_passes >= 1). A fade
+        at cursor c of region r is min(F, P) long, P = B_r + c the buffer
+        it ends, B_r the audio before region r after its silence removal.
+        Its part inside the region is applied here, before the region's
+        silence removal as in the C; the part before the region is
+        applied on the assembled sentence (_fades_before_regions). B_r is
+        taken first from the lengths before silence removal, then from the
+        silence tables of the pass before: pass k gets the k-th region
+        whose fade depends on it right, and the last pass's tables are
+        returned. Each pass but the last writes its windows back."""
+        active = ar["region_active"]
+        pause = torch.where(active, ar["region_pause"].long(), 0)
+        lens = torch.where(active, ar["region_len"].long(), 0)
+        base = _excl_cumsum(lens + pause)
+        for p in range(passes):
+            saved = self._in_region_fades(dims, ar, bufs, base)
+            tables = self._seg_tables(dims, ar, bufs)
+            if p + 1 < passes:
+                for idx, win in reversed(saved):
+                    bufs.scatter_(1, idx, win)
+                base = _excl_cumsum(
+                    torch.where(active, tables[3].long(), 0) + pause)
+        return tables
+
+    def _in_region_fades(self, dims, ar, bufs, base):
+        """Each in-region fade's part inside its region, in slot order, in
+        place, from B_r = base [B, R]; returns each slot's window index and
+        its values before the fade."""
+        M, FW = dims.MARGIN, min(dims.FADEW, dims.CONTW)
+        jf = torch.arange(FW, device=bufs.device)
+        saved = []
+        for k in range(dims.FD):
+            fpos = ar["fade_pos"][:, k].long()
+            c = torch.clamp(fpos, min=0)
+            r = ar["fade_region"][:, k].long()
+            fade = torch.minimum(ar["fade_len"][:, k].long(),
+                                 base.gather(1, r[:, None])[:, 0] + c)
+            inside = torch.minimum(fade, c)
+            j = torch.clamp(c - FW, min=0)[:, None] + jf          # in-region
+            idx = (r * dims.WREG + M)[:, None] + j
+            win = bufs.gather(1, idx)
+            t = (c[:, None] - j).to(F32) * (
+                1.0 / torch.clamp(fade, min=1).to(F32))[:, None]
+            in_fade = ((j >= (c - inside)[:, None]) & (j < c[:, None])
+                       & ((fpos >= 0) & (fade > 0))[:, None])
+            bufs.scatter_(1, idx, torch.where(
+                in_fade, trunc16(win * sine_fade_gain(t)), win))
+            saved.append((idx, win))
+        return saved
+
+    def _fades_before_regions(self, dims, ar, sent, comp_lens, offsets):
+        """The part of every fade that lies before its region's start, on
+        the assembled sentence [B, SMAX], in op order: a region's
+        in-region fades in slot order, then its tail fade, region by
+        region. A fade ending at P = B_r + c (c its cursor, or the
+        region's length after silence removal for the tail fade) covers
+        [P - min(F, P), P); here [P - min(F, P), B_r)."""
+        B, FD, R = sent.shape[0], dims.FD, dims.R
+        dev = sent.device
+        active = ar["region_active"]
+        fpos = ar["fade_pos"].long()
+        region = torch.cat([ar["fade_region"].long(),
+                            torch.arange(R, device=dev).expand(B, R)], 1)
+        end = torch.cat([torch.clamp(fpos, min=0), comp_lens.long()], 1)
+        flen = torch.cat([
+            torch.where(fpos >= 0, ar["fade_len"].long(), 0),
+            torch.where(active, ar["region_fade_after"].long(), 0)], 1)
+        rank = torch.cat([torch.arange(FD, device=dev).expand(B, FD),
+                          torch.full((B, R), FD, device=dev)], 1)
+        order = torch.argsort(region * (FD + 1) + rank, dim=1, stable=True)
+        region, end, flen = (x.gather(1, order) for x in (region, end, flen))
+        start = offsets.long().gather(1, region)                  # B_r
+        P = start + end
+        fade = torch.minimum(flen, P)
+        W = min(dims.FADEW, dims.SMAX)
+        jw = torch.arange(W, device=dev)
+        for e in range(FD + R):
+            ia = torch.clamp(start[:, e] - W, min=0)[:, None] + jw
+            win = sent.gather(1, ia)
+            t = (P[:, e, None] - ia).to(F32) * (
+                1.0 / torch.clamp(fade[:, e], min=1).to(F32))[:, None]
+            in_fade = ((ia >= (P - fade)[:, e, None])
+                       & (ia < start[:, e, None]) & (fade[:, e, None] > 0))
+            sent.scatter_(1, ia, torch.where(
+                in_fade, trunc16(win * sine_fade_gain(t)), win))
+        return sent
 
     # -- silence tables (device.py:1272-1300) -------------------------------
 
@@ -560,11 +684,14 @@ class SynthesisCore(nn.Module):
 
     # -- region_post (device.py:1567-1593) ----------------------------------
 
-    def _region_post(self, dims, ar, bufs, comp_lens):
+    def _region_post(self, dims, ar, bufs, comp_lens, offsets):
         """Energy ramp (ctts.c:2841-2865) and the region tail fade on
         every region row, masked as the JAX package's vmapped
         region_post: rows without an energy ramp keep their content, and
-        a row with fade_after 0 writes its window back unchanged."""
+        a row with fade_after 0 writes its window back unchanged. The
+        tail fade is min(F, B_r + length) long, B_r = offsets, as
+        apply_fade_out makes it over the whole buffer; its part before
+        the region is _fades_before_regions'."""
         M, W = dims.MARGIN, dims.CONTW
         rows = bufs.reshape(-1, dims.WREG)
         lens = comp_lens.reshape(-1)
@@ -580,18 +707,23 @@ class SynthesisCore(nn.Module):
         content.copy_(torch.where(apply, ramped, content))
         dops.tail_fade_window(content, lens,
                               ar["region_fade_after"].reshape(-1),
-                              dims.FADE2W)
+                              min(dims.FADE2W, W), offsets.reshape(-1))
         return rows.reshape(bufs.shape)
 
     # -- assembly (device.py:1596-1635) -------------------------------------
 
-    def _assemble(self, dims, ar, bufs, comp_lens):
+    @staticmethod
+    def _layout(ar, comp_lens):
+        """(region lengths, region offsets in the sentence, sentence
+        length) after silence removal."""
         active = ar["region_active"]
         new_lens = torch.where(active, comp_lens, 0)
         pauses = torch.where(active, ar["region_pause"].long(), 0)
         seg_lens = new_lens + pauses
-        offsets = _excl_cumsum(seg_lens)
-        total_len = seg_lens.sum(1)
+        return new_lens, _excl_cumsum(seg_lens), seg_lens.sum(1)
+
+    def _assemble(self, dims, ar, bufs, new_lens, offsets, total_len):
+        active = ar["region_active"]
         live_len = torch.where(active, dims.MARGIN + new_lens, 0)
         B = bufs.shape[0]
         sent = assemble(bufs.reshape(B, dims.R * dims.WREG),

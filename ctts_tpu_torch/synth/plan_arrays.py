@@ -3,8 +3,15 @@
 A jax-free copy of ctts_tpu/synth/device.py:59-645 (PlanDims,
 bucket_dims, walk_plan, derive_dims, fill_device_plan,
 build_device_plan, shared_plan_values) so the PyTorch port imports on a
-host without JAX or ctts_tpu. Every array and dimension it produces is
-equal to the JAX package's (tests/test_torch_plan_arrays.py).
+host without JAX or ctts_tpu. Under the default configuration every
+array and dimension it produces is equal to the JAX package's
+(tests/test_torch_plan_arrays.py). Where the JAX package departs from
+the C reference on a configuration key, the port follows the C
+(tests/test_torch_config.py): the fade widths come from fade_out_ms,
+not capped at the region margin; `fade_passes` tells the core when a
+fade reaches back past its region; `split_keeps_fades` keeps a sentence
+split from cutting through a fade; and `check_config` refuses the
+min_silence_ms values where the C's silence removal is not defined.
 """
 
 from __future__ import annotations
@@ -14,10 +21,11 @@ from typing import Optional
 
 import numpy as np
 
+from ctts_tpu_torch.config import CTTSConfig
 from ctts_tpu_torch.db.reader import VoiceDatabase
 from ctts_tpu_torch.ops.wsola import synthesis_hop_for_speed
-from ctts_tpu_torch.plan.compiler import OpKind, SynthesisPlan
-from ctts_tpu_torch.text.prosody import PhraseType
+from ctts_tpu_torch.plan.compiler import OpKind, SynthesisPlan, ms_to_samples
+from ctts_tpu_torch.text.prosody import PhraseType, get_punctuation_pause_ms
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,6 +222,130 @@ def intonation_scalars(inton, word_index: int, total_words: int,
 
 
 
+# silence removal keeps max(min_silence / 4, 10) samples of a run.
+MIN_KEPT_SILENCE = 10
+# The keys the plan compiler turns into sample counts (ms_to_samples).
+DURATION_KEYS = ("crossfade_ms", "crossfade_vowel_ms",
+                 "crossfade_s_ending_ms", "crossfade_r_ending_ms",
+                 "word_pause_ms", "unknown_silence_ms", "fade_in_ms",
+                 "fade_out_ms")
+
+
+def check_config(config: CTTSConfig) -> None:
+    """Refuse the configuration values the port cannot hold to the C.
+
+    A duration of fewer than 0 samples: the C converts it to size_t
+    (`(size_t)(ms * CTTS_SAMPLE_RATE / 1000.0f)`), which is undefined
+    for a negative value, and the NumPy oracle then removes samples or
+    fails; no output is the reference's. vowel_to_consonant_factor
+    scales crossfade_ms, so a negative product is refused the same way.
+
+    remove_silence_regions (reference/ctts.c:1634-1690) keeps
+    max(min_silence / 4, 10) samples of every silent run of at least
+    min_silence samples, moving them in place. With min_silence under 10
+    samples a shorter run is "kept" at 10 samples: the C copies samples
+    it has not read yet over ones it still has to, and writes past the
+    end of the word, while the NumPy oracle lengthens the run from the
+    input. The two disagree, so no output is the reference's; the port
+    refuses those values where silence removal reads them."""
+    for key in DURATION_KEYS:
+        n = ms_to_samples(getattr(config, key))
+        if n < 0:
+            raise ValueError(
+                f"{key}: {getattr(config, key)} is {n} samples; the port "
+                f"supports {key} >= 0")
+    v2c = float(np.float32(config.crossfade_ms)
+                * np.float32(config.vowel_to_consonant_factor))
+    if ms_to_samples(v2c) < 0:
+        raise ValueError(
+            f"vowel_to_consonant_factor: {config.vowel_to_consonant_factor}"
+            f" makes a crossfade of {ms_to_samples(v2c)} samples; the port "
+            "supports vowel_to_consonant_factor >= 0")
+    if config.remove_word_silence and (
+            ms_to_samples(config.min_silence_ms) < MIN_KEPT_SILENCE):
+        raise ValueError(
+            f"min_silence_ms: {config.min_silence_ms} is "
+            f"{ms_to_samples(config.min_silence_ms)} samples; the port "
+            f"supports min_silence_ms >= 0.4536 ({MIN_KEPT_SILENCE} "
+            "samples at 22050 Hz, the run silence removal keeps), or "
+            "remove_word_silence: 0")
+
+
+def fade_widths(fade_out_samples: int) -> dict:
+    """FADEW and FADE2W, the widths of the in-region and the region tail
+    fade windows, from the configuration's fade_out length (every
+    FADE_TAIL has that length). Under the default configuration they
+    equal the JAX package's per-row widths; they are not capped at the
+    region margin: the core clamps its windows to the rows."""
+    return {"FADEW": _roundup(max(fade_out_samples, 1), 128),
+            "FADE2W": _next_pow2(max(fade_out_samples, 1), 128)}
+
+
+def split_keeps_fades(config: CTTSConfig) -> bool:
+    """Whether a sentence split (plan/split.py) keeps every fade inside
+    its row. The split cuts before a sentence-end pause, which then
+    leads the next row; apply_fade_out fades the buffer's last
+    fade_out_ms, so a fade of the next row stays inside it when that
+    pause is at least as long as the fade (not so with word_pause_ms 0,
+    or a fade longer than the pause)."""
+    pause = min(ms_to_samples(get_punctuation_pause_ms(c, config.word_pause_ms))
+                for c in b".!?")
+    return ms_to_samples(config.fade_out_ms) <= pause
+
+
+def fade_passes(dims: PlanDims, arrays: dict) -> int:
+    """How the core applies a batch's fades (arrays stacked [B, ...]).
+
+    apply_fade_out fades the last min(F, P) samples of the whole buffer,
+    P samples long at that point (reference/ctts.c:3028-3039), and so
+    reaches back past the start of the fade's region when F is longer
+    than what the region holds before it. Returns 0 when the lowering
+    proves every fade of the batch stays inside its region's window or
+    reaches back only over the zeros of the pause before it (the case of
+    the default configuration): the core then fades each window where
+    it lies. Otherwise 1 + D: the core also applies the part of every
+    fade that lies before its region, on the assembled sentence, in op
+    order; and D is the most regions of a row whose in-region fade may
+    be cut to the P before it, with P not known until the silence
+    removal of earlier regions has run: the core runs the fades and the
+    silence tables D + 1 times, each pass taking P from the one
+    before."""
+    active = np.asarray(arrays["region_active"]).astype(bool)
+    pause = np.where(active, arrays["region_pause"], 0).astype(np.int64)
+    lens = np.where(active, arrays["region_len"], 0).astype(np.int64)
+    remove = np.asarray(arrays["region_remove"]).astype(bool) & active
+    after = np.where(active, arrays["region_fade_after"], 0)
+    # The zeros just before region r: the pause that closed region r-1.
+    zeros = np.concatenate([np.zeros_like(pause[:, :1]), pause[:, :-1]], 1)
+    first = np.arange(pause.shape[1])[None, :] == 0
+
+    pos = np.asarray(arrays["fade_pos"]).astype(np.int64)
+    flen = np.asarray(arrays["fade_len"]).astype(np.int64)
+    reg = np.asarray(arrays["fade_region"]).astype(np.int64)
+    live = (pos >= 0) & (flen > 0)
+    c = np.maximum(pos, 0)
+    before = np.take_along_axis(np.where(first, 0, zeros), reg, 1)
+    in_window = ~live | (flen <= c + before)
+    post_in_zeros = (after == 0) | first | (after <= zeros)
+    # The in-region windows (unused slots too) end at the margin's end
+    # at the earliest, so FADEW must fit the margin.
+    if (dims.FADEW <= dims.MARGIN and in_window.all()
+            and post_in_zeros.all()):
+        return 0
+    # B_r, the buffer before region r, is at least the pauses and the
+    # lengths of the regions that remove no silence; it is known here
+    # when no earlier region removes any.
+    low = np.cumsum(pause + np.where(remove, 0, lens), 1) - (
+        pause + np.where(remove, 0, lens))
+    known = (np.cumsum(remove, 1) - remove) == 0
+    cut = live & (flen > c + np.take_along_axis(low, reg, 1)) & \
+        ~np.take_along_axis(known, reg, 1)
+    # Regions with a cut slot, each counted once per row.
+    hit = np.zeros(pause.shape, np.int64)
+    np.add.at(hit, (np.arange(pos.shape[0])[:, None], reg), cut)
+    return 1 + int((hit > 0).sum(1).max(initial=0))
+
+
 @dataclasses.dataclass
 class WalkedPlan:
     """Host lowering intermediate: the plan walked into region/unit/fade
@@ -239,6 +371,7 @@ class WalkedPlan:
 def walk_plan(plan: SynthesisPlan, db: VoiceDatabase) -> WalkedPlan:
     """Walk a compiled plan's ops into region-relative unit/fade records
     (the dims-independent half of lowering)."""
+    check_config(plan.config)
     unit_ids = {op.unit_idx for op in plan.ops if op.kind == OpKind.UNIT}
     unit_lens = {i: int(db.index[i]["sample_count"]) for i in unit_ids}
 
@@ -392,11 +525,7 @@ def derive_dims(w: WalkedPlan, db: VoiceDatabase) -> PlanDims:
         CONTW=min(_next_pow2(max(w.max_region_len, 1024), 1024),
                   _roundup(w.margin + w.max_region_len + bank_w + w.cfmax,
                            1024) - w.margin),
-        FADEW=min(_roundup(max([f[2] for f in w.fades] + [1]), 128),
-                  w.margin),
-        FADE2W=_next_pow2(
-            max([r["fade_after"] for r in w.regions] + [1]), 128
-        ),
+        **fade_widths(w.plan.fade_out_samples),
         fade_in_samples=w.plan.fade_in_samples,
         min_silence_samples=w.plan.min_silence_samples,
         remove_dc=bool(cfg.remove_dc_offset),
@@ -424,7 +553,6 @@ def fill_device_plan(w: WalkedPlan, db: VoiceDatabase,
     assert dims.CONTW >= w.max_region_len, "region exceeds CONTW"
     assert dims.CONTW <= dims.WREG - dims.MARGIN
     assert all(f[2] <= dims.FADEW for f in fades), "fade exceeds FADEW"
-    assert dims.FADEW <= dims.MARGIN
 
     a = {}
     a["unit_id"] = np.full(dims.U, -1, np.int32)

@@ -12,15 +12,24 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.machinery, pkgutil, sys
 import ctts_tpu_torch
+# runtime/ also holds the libraries make builds there (libctts*.so),
+# which the walk reports as extension modules: they are not Python
+# modules, and ctypes loads them.
 names = [m.name for m in pkgutil.walk_packages(ctts_tpu_torch.__path__,
-                                               "ctts_tpu_torch.")]
-# runtime/ holds the built libraries, so it is a directory and not a
-# package that walk_packages enters; its binding is imported by name.
-for name in names + ["ctts_tpu_torch.runtime.native", "chip_smoke"]:
+                                               "ctts_tpu_torch.")
+         if not isinstance(m.module_finder.find_spec(m.name).loader,
+                           importlib.machinery.ExtensionFileLoader)]
+for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 assert "ctts_tpu_torch.bench" in names
+assert "ctts_tpu_torch.runtime.native" in names
+# runtime/__init__.py re-exports the native binding, as the JAX
+# package's runtime/__init__.py does.
+from ctts_tpu_torch.runtime import NativeEngine, native_available
+from ctts_tpu_torch.runtime.native import NativeEngine as engine
+assert NativeEngine is engine and callable(native_available)
 import glob, importlib.util, os
 tools = sorted(glob.glob(os.path.join("tools", "torch_*.py")))
 assert "tools/torch_profile_stages.py" in tools, tools

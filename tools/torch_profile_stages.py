@@ -181,6 +181,7 @@ METHODS = {
     "_seg_tables": SEGTABLES,
     "_contour": "contour and fall zones",
     "_region_post": "region_post",
+    "_layout": "assembly (K4)",
     "_assemble": "assembly (K4)",
 }
 FUNCTIONS = [("synth.device", "compact", "compaction (K3)"),
@@ -195,7 +196,9 @@ def stage_marks(core, marks: StageMarks):
     """Wrap the stages of `core` (METHODS, and FUNCTIONS: the module
     functions it and synth/compiled.py call, torch.cumsum inside the
     silence tables) so that each opens and closes its stage on `marks`;
-    everything is restored on exit. The computation is unchanged."""
+    everything is restored on exit. The computation is unchanged. A
+    method the core lacks (a checkout from before it) is not marked: its
+    ops stay in the stage that calls them."""
     import importlib
 
     def staged(fn, label):
@@ -215,8 +218,9 @@ def stage_marks(core, marks: StageMarks):
         m if m == "torch" else f"ctts_tpu_torch.{m}"), name, label)
         for m, name, label in FUNCTIONS]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in mods]
-    for name, label in METHODS.items():
-        setattr(core, name, staged(getattr(core, name), label))
+    methods = [name for name in METHODS if hasattr(core, name)]
+    for name in methods:
+        setattr(core, name, staged(getattr(core, name), METHODS[name]))
     for mod, name, label in mods:
         setattr(mod, name, staged(getattr(mod, name), label))
     try:
@@ -224,7 +228,7 @@ def stage_marks(core, marks: StageMarks):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-        for name in METHODS:
+        for name in methods:
             delattr(core, name)
 
 
