@@ -24,7 +24,8 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      the latency floor of the frame chain (the decide launch with the
      window already in shared memory); for compose and assemble the
      time of a zero fill of their output; for pitch an empty kernel's
-     launch (the launch floor);
+     launch (the launch floor); compact also at a silence table of
+     NBLK_WIDE = 512 slots (the widest phase 9 runs again at);
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts (batch i: the texts rotated by i, 7 times over, and
      16 rows of text i, so that every batch differs and a batch
@@ -62,7 +63,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      the graphs and the eager core in turns (graph, eager, eager,
      graph), with the compiled core's eager / capture / replay runs per
      batch, each pass's audio-s/s, outputs equal bit for bit and held to
-     the oracle. A failed capture or replay raises;
+     the oracle. A failed capture or replay raises. Every stream and
+     batch of the phase runs no row again at a wider silence table
+     (rows_rerun 0: the default configuration never overflows);
   6. the entry points: `python -m ctts_tpu_torch.cli build` of the
      generated dataset (byte-equal to phase 5's voice.db), then `synth`
      in a subprocess at speed 1.0 (no flags: the torch executor on the
@@ -73,7 +76,10 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      corpus (ctts_tpu_torch/testing/corpus.py), one call per speed, every
      utterance held to the oracle, twice: the first pass (every
      signature new, so eager) timed, the second (captures) traced for
-     its launch counts and equal to the first;
+     its launch counts and equal to the first, with no row run again;
+     then tools/torch_generate_samples.py in a subprocess with no flags
+     (the torch executor on the card) over the corpus: its seconds,
+     every WAV held to the oracle and listed on its page;
   7. multi-device: the kernel library's CUDA runtime follows the device
      that torch.cuda.device makes current, on every card, and with two
      or more cards phase 4's kernels on cuda:1 with cuda:0 current
@@ -101,17 +107,22 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      bit and pass 1 held to the oracle, the warm latency eager vs replay
      in turns and what a replay spends (plan compile, lowering, the
      graphs' device time), and the card's reserved memory with those
-     graphs; then
+     graphs, with no row run again; then
      `python -m ctts_tpu_torch.bench` in a subprocess, bounded
      (BENCH_ENV): its line parsed and held to its parity bounds, with no
-     eager run or capture in its timed regions;
+     eager run or capture in its timed regions and silence_rows_rerun 0;
   9. the configuration keys: the default and each of remove_dc_offset:
      0, min_silence_ms: 0, fade_in_ms: 300, fade_out_ms: 400,
-     word_pause_ms: 0 and crossfade_ms: 200 alone, on the speed-1.0 texts of
+     word_pause_ms: 0 and crossfade_ms: 200 alone, and three settings
+     whose regions hold more kept segments than the 32-slot silence
+     table (silence_threshold 0.5 with min_silence_ms 1 and 2, 0.3 with
+     1), on the speed-1.0 texts of
      tests/test_device_executor.py::CASES at 1.0 and 1.5, as one served
      batch and one sentence at a time, each through three passes (eager,
      capture, replay): replays equal to the eager pass bit for bit, the
-     eager pass held to the oracle; min_silence_ms: 0 must be refused at
+     eager pass held to the oracle, the rows each pass ran again and the
+     table widths they ran at (above 0 in the three overflow settings,
+     0 in the rest); min_silence_ms: 0 must be refused at
      lowering with a ValueError naming the key, on both paths.
 With --kernels-only the script stops after phase 4.
 The script imports nothing of the JAX package: the oracle, the voice
@@ -149,6 +160,9 @@ B, U, UBUF, CFMAX = 128, 32, 7168, 1024
 R, WREG, MARGIN, CONTW, SMAX = 16, 32768, 3072, 28672, 114688
 NSHIFT = 16
 NBLK = 32
+# The widest silence table the configurations of phase 9 run again at
+# (plan_arrays.seg_width): K3 is also checked and timed at it.
+NBLK_WIDE = 512
 # WSOLA cases: speed, hop and output width of that bucket
 # (plan_arrays._omax_for), and the sentences of kernel_inputs taken: all
 # B, or the one full-length row (what execute_plan_torch runs, B = 1).
@@ -316,6 +330,7 @@ def kernel_inputs(np):
                 kept += 1
             dst[b, r, kept:] = out
     ins["compact"] = (bufs, starts, dst, seg_len)
+    ins["compact_wide"] = wide_tables(np, rng)
 
     # assemble: cumsum offsets of active regions, margin overlap.
     active = rng.random((B, R)) < 0.8
@@ -347,6 +362,36 @@ def kernel_inputs(np):
     sent[np.arange(SMAX)[None, :] >= counts[:, None]] = 0.0
     ins["wsola"] = (sent, counts)
     return ins
+
+
+def wide_tables(np, rng):
+    """Kept-segment tables of NBLK_WIDE slots, as silence removal makes
+    them: 256-512 segments a region of 1-39 samples, 0-15 apart,
+    ascending, destinations packed from MARGIN; unused slots have length
+    0 and the next free destination."""
+    shape = (B, R, NBLK_WIDE)
+    count = rng.integers(NBLK_WIDE // 2, NBLK_WIDE + 1, (B, R, 1))
+    used = np.arange(NBLK_WIDE)[None, None, :] < count
+    seg_len = np.where(used, rng.integers(1, 40, shape), 0)
+    gap = rng.integers(0, 16, shape)
+    dst = MARGIN + np.cumsum(seg_len, 2) - seg_len
+    starts = np.where(used, dst + np.cumsum(gap, 2), 0)
+    assert int((starts + seg_len).max()) <= MARGIN + CONTW
+    return tuple(x.astype(np.int32) for x in (starts, dst, seg_len))
+
+
+def source_index(np, starts, dst, seg_len):
+    """[B, R*WREG] int64: the input position whose sample the compaction
+    of these tables puts at each position (K3's library yardstick, one
+    gather)."""
+    src = np.tile(np.arange(R * WREG, dtype=np.int64), (B, 1))
+    b, r, k = np.nonzero(seg_len)
+    n = seg_len[b, r, k].astype(np.int64)
+    seg = np.repeat(np.arange(n.size), n)
+    at = np.arange(seg.size) - (np.cumsum(n) - n)[seg]
+    src[b[seg], r[seg] * WREG + dst[b, r, k][seg] + at] = \
+        r[seg] * WREG + starts[b, r, k][seg] + at
+    return src
 
 
 def assemble_adversarial(np, rng, offsets, live):
@@ -439,6 +484,7 @@ def kernel_tensors(torch, ins, dev) -> dict:
     (t["contrib"], t["fo"], t["base_off"], t["cf_in"], t["n_eff"],
      t["a_c"]) = on(*ins["compose"])
     t["bufs"], t["starts"], t["dst"], t["seg_len"] = on(*ins["compact"])
+    t["wide_tables"] = on(*ins["compact_wide"])
     _, t["offsets"], t["live"] = on(*ins["assemble"])
     t["adv_offsets"], t["adv_live"] = on(*ins["assemble_adversarial"])
     for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
@@ -461,6 +507,7 @@ def kernel_cases(hopper, t) -> dict:
     cp = (t["contrib"], t["fo"], t["base_off"], t["cf_in"], t["n_eff"],
           t["a_c"], TOT, True)
     cm = (t["bufs"], t["starts"], t["dst"], t["seg_len"], WREG)
+    cw = (t["bufs"], *t["wide_tables"], WREG)
     cases = {
         "pitch_corr": (lambda: pitch.pitch_corr(t["seg"], t["ana"]),
                        lambda: pitch.pitch_corr_plain(t["seg"], t["ana"]),
@@ -472,6 +519,9 @@ def kernel_cases(hopper, t) -> dict:
                     lambda: compose.compose_plain(*cp), 10, 3),
         "compact": (lambda: compact.compact(*cm),
                     lambda: compact.compact_plain(*cm), 20, 3),
+        f"compact NBLK={NBLK_WIDE}": (
+            lambda: compact.compact(*cw),
+            lambda: compact.compact_plain(*cw), 20, 3),
     }
     for tag, offs, live, outw in (
             ("assemble", "offsets", "live", OUTW),
@@ -543,6 +593,12 @@ def check_kernels(torch, np, hopper) -> dict:
     compose_work["zero_fill_ms"] = device_ms(fill.zero_, 20)
     del fill
     compact_work = bound(2 * bufs.nbytes + 3 * t["starts"].nbytes, 0.0)
+    wide_work = bound(2 * bufs.nbytes + 3 * t["wide_tables"][0].nbytes,
+                      0.0)
+    # The int64 starts and ends _first_flagged makes for the silence
+    # tables of B*R regions at this width (the kernel does not see them).
+    wide_work["first_flagged_int64_bytes_each"] = 8 * B * R * (NBLK_WIDE
+                                                               + 1)
 
     def assemble_bound(offs, lv, outw):
         """The live samples that land in [0, outw), read once and added
@@ -561,13 +617,10 @@ def check_kernels(torch, np, hopper) -> dict:
 
     # Library yardsticks (timed here, never called by the port).
     # compact: one gather with the source index of every position.
-    src = np.tile(np.arange(TOT, dtype=np.int64), (B, 1))
-    st, ds, sl = ins["compact"][1:]
-    for b, r, k in zip(*np.nonzero(sl)):
-        n = int(sl[b, r, k])
-        src[b, r * WREG + ds[b, r, k]:r * WREG + ds[b, r, k] + n] = \
-            r * WREG + st[b, r, k] + np.arange(n)
-    compact_idx = torch.as_tensor(src, device=dev)
+    compact_idx = torch.as_tensor(source_index(np, *ins["compact"][1:]),
+                                  device=dev)
+    wide_idx = torch.as_tensor(source_index(np, *ins["compact_wide"]),
+                               device=dev)
     # assemble: one index_add of every live sample at its output slot
     # (each dead sample goes to a dropped slot of its own, so no slot
     # draws contended atomics; <= 2 adds land on a live slot, so the
@@ -585,12 +638,14 @@ def check_kernels(torch, np, hopper) -> dict:
     bufs_flat = bufs.reshape(-1)
     works = {"pitch_corr": pitch_work, "pitch_corr L=220": pitch220_work,
              "compose": compose_work, "compact": compact_work,
+             f"compact NBLK={NBLK_WIDE}": wide_work,
              "assemble": assemble_work, "assemble adversarial": adv_work,
              "assemble scalar path": odd_work}
     libraries = {
         "pitch_corr": pitch_conv(torch, seg, ana),
         "pitch_corr L=220": pitch_conv(torch, seg, t["ana220"]),
         "compact": lambda: (bufs.gather(1, compact_idx),),
+        f"compact NBLK={NBLK_WIDE}": lambda: (bufs.gather(1, wide_idx),),
         "assemble": lambda: (torch.index_add(asm_zero, 0, asm_idx, bufs_flat)
                              [:B * OUTW].reshape(B, OUTW),)}
     for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
@@ -937,6 +992,24 @@ def sync_ms(torch, np, classes, B: int, reps: int = 21) -> float:
     return float(np.median(times))
 
 
+def rows_rerun() -> int:
+    """Rows run again so far at a wider silence table (compiled.widened:
+    a region with more than NBLK kept segments)."""
+    from ctts_tpu_torch.synth import compiled
+
+    return sum(compiled.widened.values())
+
+
+def no_rerun(before: int, what: str) -> int:
+    """The rows run again since `before`; raises unless there are none
+    (the default configuration never overflows the 32-slot table)."""
+    n = rows_rerun() - before
+    if n:
+        raise RuntimeError(f"{what}: {n} row(s) ran again at a wider "
+                           "silence table on the default path")
+    return n
+
+
 def stream_of(torch, bs, n: int, speed: float):
     """(outputs, wall s) of stream() over batches 0..n-1, from an idle
     card to the last batch on the host."""
@@ -963,6 +1036,7 @@ def serve(torch, np, hopper, ways: dict, speed: float,
     from ctts_tpu_torch.ops import wire
 
     served = ways["wire"]
+    rerun0 = rows_rerun()
     # Host seconds of each batch's drain (_finish: wait for the copy,
     # decode with the codec, slice rows), on the drain thread but the
     # last batch's, which runs on the main thread.
@@ -1054,7 +1128,8 @@ def serve(torch, np, hopper, ways: dict, speed: float,
            "launches": launches, "compiled_runs": runs,
            "audio_s_per_batch": audio,
            "pitch_rows": lengths, "captures": captures(served)
-           + captures(ways["plain"]), "device_idle": idle}
+           + captures(ways["plain"]), "device_idle": idle,
+           "rows_rerun": no_rerun(rerun0, f"the streams at {speed}")}
     for key in ways:
         w1, wn = walls[key]
         wall_1 = sorted(w1)[TIMING_REPEATS // 2]
@@ -1222,6 +1297,7 @@ def run_slice(torch, np, hopper, root: str):
     say("slice_stretch", res["1.5"])
 
     texts = batch_texts(0)
+    rerun0 = rows_rerun()
     for _ in range(2):    # first-use set-up: the eager batch, the capture
         served.synthesize(texts, speed=SYNC_SPEED)
     torch.cuda.synchronize()
@@ -1247,14 +1323,19 @@ def run_slice(torch, np, hopper, root: str):
                   "oracle_max_abs_diff": worst, "graph_equals_eager": True,
                   "launches": launches, "compiled_runs": runs,
                   "wall_s": wall, "audio_s": audio,
-                  "audio_s_per_wall_s": audio / wall}
+                  "audio_s_per_wall_s": audio / wall,
+                  "rows_rerun": no_rerun(rerun0,
+                                         f"synthesize at {SYNC_SPEED}")}
     say("synthesize_sync", res["0.5"])
     res["memory"] = dict(graph_memory(torch, served, ways["eager"]),
                          served_captures=captures(served))
     say("graph_memory", res["memory"])
     for speed in (1.0, STRETCH_SPEED):
+        rerun0 = rows_rerun()
         res[f"varied_{speed}"] = serve_varied(torch, np, served,
                                               ways["eager"], speed)
+        res[f"varied_{speed}"]["rows_rerun"] = no_rerun(
+            rerun0, f"the varied stream at {speed}")
         say("slice_varied", res[f"varied_{speed}"])
     res["memory"]["after_varied"] = {
         "graphs_captured": len(captures(served)),
@@ -1355,6 +1436,7 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     for _, text, speed in CORPUS:
         groups[speed].append(text)
     eng = CTTSEngine(dbp, device=torch.device("cuda"))
+    rerun0 = rows_rerun()
 
     def corpus():
         return {sp: eng.synthesize_batch(texts, sp)
@@ -1398,9 +1480,45 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
                      "wall_s": wall, "compiled_runs": first,
                      "second_pass": {"wall_s_traced": wall_again,
                                      "compiled_runs": runs,
-                                     "launches": launches}}
+                                     "launches": launches},
+                     "rows_rerun": no_rerun(rerun0, "the corpus")}
+    res["demo_page"] = run_demo_page(np, work, env, dbp, db, cfg)
     say("entry_points", res)
     return res
+
+
+def run_demo_page(np, work: str, env: dict, dbp: str, db, cfg) -> dict:
+    """tools/torch_generate_samples.py as a user runs it: no flags (the
+    torch executor on the card), in a subprocess, over the corpus; every
+    WAV held to the oracle and listed on the page."""
+    import subprocess
+
+    from ctts_tpu_torch.constants import MAX_SPEED, MIN_SPEED
+    from ctts_tpu_torch.testing.corpus import CORPUS
+    from ctts_tpu_torch.utils.wav import read_wav
+
+    out = os.path.join(work, "samples")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(
+        REPO, "tools", "torch_generate_samples.py"), dbp, out], cwd=work,
+        env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"torch_generate_samples.py: rc {r.returncode}"
+                           f"\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
+    with open(os.path.join(out, "index.html"), encoding="utf-8") as f:
+        page = f.read()
+    worst = 0
+    for fname, text, speed in CORPUS:
+        if f'src="audio/{fname}"' not in page:
+            raise RuntimeError(f"demo page: {fname} is not listed")
+        speed = min(max(float(np.float32(speed)), MIN_SPEED), MAX_SPEED)
+        worst = max(worst, held_to_oracle(
+            np, db, cfg, read_wav(os.path.join(out, "audio", fname)), text,
+            speed))
+    return {"utterances": len(CORPUS), "held_to_oracle": len(CORPUS),
+            "oracle_max_abs_diff": worst, "tool_s": wall,
+            "tool_last_line": r.stdout.strip().splitlines()[-1]}
 
 
 # Phase 7. The split streams' interleaved repeats (as serve(), fewer).
@@ -1811,6 +1929,7 @@ def run_one_sentence(torch, np, hopper, dbp: str) -> dict:
     from ctts_tpu_torch.synth import compiled
 
     eng = CTTSEngine(dbp, device=torch.device("cuda"))
+    rerun0 = rows_rerun()
 
     def one_pass():
         return [[eng.synthesize(t, sp) for t in TEXTS]
@@ -1874,7 +1993,8 @@ def run_one_sentence(torch, np, hopper, dbp: str) -> dict:
             "replay_over_eager": float(np.median(medians["replay"]))
             / float(np.median(medians["eager"])),
             "graphs_captured": graphs, "memory_reserved_bytes": reserved,
-            "memory_reserved_after_close_bytes": torch.cuda.memory_reserved()}
+            "memory_reserved_after_close_bytes": torch.cuda.memory_reserved(),
+            "rows_rerun": no_rerun(rerun0, "the one-sentence passes")}
 
 
 def run_bench(np) -> dict:
@@ -1911,7 +2031,8 @@ def run_bench(np) -> dict:
          line.get("stretch_parity_length_match") is True),
         ("mesh_matches_unsharded", line.get("mesh_matches_unsharded") is True),
         ("timed_eager_runs", line.get("timed_eager_runs") == 0),
-        ("timed_capture_runs", line.get("timed_capture_runs") == 0))
+        ("timed_capture_runs", line.get("timed_capture_runs") == 0),
+        ("silence_rows_rerun", line.get("silence_rows_rerun") == 0))
         if not ok}
     if bad:
         raise RuntimeError(f"bench: {bad}\n{lines[-1]}")
@@ -1930,8 +2051,18 @@ CONFIG_CELLS = [("default", {}),
                 ("fade_in_ms: 300", {"fade_in_ms": 300.0}),
                 ("fade_out_ms: 400", {"fade_out_ms": 400.0}),
                 ("word_pause_ms: 0", {"word_pause_ms": 0.0}),
-                ("crossfade_ms: 200", {"crossfade_ms": 200.0})]
+                ("crossfade_ms: 200", {"crossfade_ms": 200.0}),
+                ("silence_threshold: 0.5, min_silence_ms: 1",
+                 {"silence_threshold": 0.5, "min_silence_ms": 1.0}),
+                ("silence_threshold: 0.5, min_silence_ms: 2",
+                 {"silence_threshold": 0.5, "min_silence_ms": 2.0}),
+                ("silence_threshold: 0.3, min_silence_ms: 1",
+                 {"silence_threshold": 0.3, "min_silence_ms": 1.0})]
 CONFIG_REFUSED = {"min_silence_ms: 0"}
+# Settings that leave more kept segments in a region than the 32-slot
+# silence table holds: their rows run again at a wider table.
+CONFIG_OVERFLOWS = {name for name, keys in CONFIG_CELLS
+                    if "silence_threshold" in keys}
 CONFIG_TEXTS = ["como vai", "que legal!", "como se chama?",
                 "bom dia. tudo bem.", "oi xz oi"]
 CONFIG_SPEEDS = (1.0, STRETCH_SPEED)
@@ -1950,7 +2081,10 @@ def run_config_cells(torch, np, dbp: str) -> dict:
     bit, and that is held to the oracle (equal lengths, <= LSB_BOUND). A
     refused value must raise ValueError naming its key, on both paths.
     Each cell records the fade passes of its signatures
-    (plan_arrays.fade_passes: 0 for fades kept in their windows)."""
+    (plan_arrays.fade_passes: 0 for fades kept in their windows), the
+    rows each pass ran again at a wider silence table and those tables'
+    widths (compiled.widened): above 0 in every pass of the
+    CONFIG_OVERFLOWS cells, 0 in the others."""
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
@@ -2007,15 +2141,26 @@ def run_config_cells(torch, np, dbp: str) -> dict:
             for way, (run, eager_run) in ways.items():
                 what = f"{name} {way} at {speed}"
                 seen = set(compiled.signatures())
-                outs, runs, walls = [], [], []
+                outs, runs, walls, reruns = [], [], [], []
+                widths = set()
                 for _ in kinds:
                     before = dict(compiled.runs)
+                    wide = dict(compiled.widened)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     outs.append(run())
                     walls.append(time.perf_counter() - t0)
                     runs.append({k: compiled.runs[k] - before.get(k, 0)
                                  for k in kinds})
+                    grew = {w: n - wide.get(w, 0)
+                            for w, n in compiled.widened.items()
+                            if n > wide.get(w, 0)}
+                    reruns.append(sum(grew.values()))
+                    widths |= set(grew)
+                if (min(reruns) <= 0 if name in CONFIG_OVERFLOWS
+                        else max(reruns) > 0):
+                    raise RuntimeError(f"{what}: rows run again per pass "
+                                       f"{reruns}")
                 new = [sig for sig in compiled.signatures()
                        if sig not in seen]
                 total = {k: sum(r[k] for r in runs) for k in kinds}
@@ -2035,7 +2180,8 @@ def run_config_cells(torch, np, dbp: str) -> dict:
                     "oracle_max_abs_diff": worst, "passes_equal_eager": True,
                     "signatures": len(new), "compiled_runs": runs,
                     "wall_s": walls,
-                    "fade_passes": sorted({sig.fades for sig in new})})
+                    "fade_passes": sorted({sig.fades for sig in new}),
+                    "rows_rerun": reruns, "table_widths": sorted(widths)})
         bs = twin = voice = None
     compiled.release_compiled()
     return {"texts": CONFIG_TEXTS, "speeds": list(CONFIG_SPEEDS),

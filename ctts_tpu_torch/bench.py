@@ -297,9 +297,9 @@ def enqueued_audio_s(enqueued) -> float:
     lengths alone (4 bytes a row to the host)."""
     _, per_bucket = enqueued
     total = 0
-    for _, (n, rows, handles) in per_bucket:
-        for d, (_, _, out_lens, _) in enumerate(handles):
-            k = min(n - d * rows, rows)
+    for _, b in per_bucket:
+        for d, (_, _, out_lens, _) in enumerate(b.shards):
+            k = min(b.n - d * b.rows, b.rows)
             if k > 0:
                 total += int(out_lens[:k].sum())
     return total / SAMPLE_RATE
@@ -328,8 +328,8 @@ def d2h_transfer_mbps(enqueued) -> float:
     _, per_bucket = enqueued
     t0 = time.perf_counter()
     drained = 0
-    for _, (_, _, handles) in per_bucket:
-        for payload, classes, _, _ in handles:
+    for _, b in per_bucket:
+        for payload, classes, _, _ in b.shards:
             for b in (payload, classes):
                 if b is not None:
                     drained += b.cpu().numpy().nbytes
@@ -501,8 +501,10 @@ def run(device: torch.device, dbp: str, root: str, texts=None,
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
     from ctts_tpu_torch.parallel.mesh import make_mesh
+    from ctts_tpu_torch.synth import compiled
 
     base = list(TEXTS if texts is None else texts)
+    rerun = sum(compiled.widened.values())
     db = VoiceDatabase(dbp)
     config = config_defaults()
     n_chips = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -588,6 +590,9 @@ def run(device: torch.device, dbp: str, root: str, texts=None,
         "latency_ms_single_sentence": latency,
         **runs.totals(),
         "timed_compiled_runs": runs.by_section,
+        # Rows run again at a wider silence table (compiled.run_wide):
+        # 0 at the default configuration.
+        "silence_rows_rerun": sum(compiled.widened.values()) - rerun,
     }
     return line
 

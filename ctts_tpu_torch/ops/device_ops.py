@@ -27,8 +27,10 @@ PITCH_MAX_LAG = SAMPLE_RATE // 80    # 275
 PITCH_ANALYSIS = SAMPLE_RATE // 100  # 220
 PITCH_SPAN = PITCH_MAX_LAG + PITCH_ANALYSIS  # 495
 
-# Max kept segments per region for silence compaction
-# (ctts_tpu/ops/device_ops.py:416); overflow is counted and surfaced.
+# Kept segments per region of the default silence table
+# (ctts_tpu/ops/device_ops.py:416). A region with more is counted as an
+# overflow; its row is run again at a table wide enough for it
+# (plan_arrays.seg_width).
 NBLK = 32
 
 
@@ -106,28 +108,33 @@ def pitch_shift_blend(head: torch.Tensor, shift_region: torch.Tensor,
     return torch.where(i[None, :] < sr, blended, head)
 
 
-def _first_flagged(flags: torch.Tensor, W: int) -> torch.Tensor:
-    """Indices of the first NBLK True positions per row, ascending,
+def _first_flagged(flags: torch.Tensor, W: int,
+                   nblk: int = NBLK) -> torch.Tensor:
+    """Indices of the first nblk True positions per row, ascending,
     padded with W (the JAX top_k / hierarchical extraction)."""
     n = flags.shape[0]
     rank = torch.cumsum(flags.to(torch.int32), dim=1)
-    take = flags & (rank <= NBLK)
-    slot = torch.where(take, rank - 1, NBLK).long()
-    out = torch.full((n, NBLK + 1), W, dtype=torch.int64,
+    take = flags & (rank <= nblk)
+    slot = torch.where(take, rank - 1, nblk).long()
+    out = torch.full((n, nblk + 1), W, dtype=torch.int64,
                      device=flags.device)
     pos = torch.arange(W, device=flags.device).expand(n, W)
     out.scatter_(1, slot, pos)   # only the dummy column sees duplicates
-    out[:, NBLK] = W
-    return out[:, :NBLK]
+    out[:, nblk] = W
+    return out[:, :nblk]
 
 
 def silence_segments(buf: torch.Tensor, length: torch.Tensor,
-                     threshold: torch.Tensor, min_silence: int):
+                     threshold: torch.Tensor, min_silence: int,
+                     nblk: int = NBLK):
     """Kept-segment tables of remove_silence_regions (ctts.c:1634-1690);
     ctts_tpu/ops/device_ops.py:491. buf [n, W], length [n], threshold
-    [n] f32. Returns (starts [n, NBLK], seg_len [n, NBLK], new_len [n],
+    [n] f32. Returns (starts [n, nblk], seg_len [n, nblk], new_len [n],
     overflow [n]) as int64/bool; regions that are all zero or empty
-    keep everything (starts = seg_len = 0, new_len = length)."""
+    keep everything (starts = seg_len = 0, new_len = length). A region
+    with more than nblk kept segments overflows: its last slot then
+    runs to the region's end (the JAX package's catch-all), and its
+    audio is not the reference's."""
     n, W = buf.shape
     dev = buf.device
     i = torch.arange(W, device=dev)
@@ -165,15 +172,15 @@ def silence_segments(buf: torch.Tensor, length: torch.Tensor,
     seg_start_flag = keep & ~prev_keep
     seg_end_flag = keep & ~next_keep
 
-    starts = _first_flagged(seg_start_flag, W)
-    ends = _first_flagged(seg_end_flag, W)
+    starts = _first_flagged(seg_start_flag, W, nblk)
+    ends = _first_flagged(seg_end_flag, W, nblk)
     valid = starts < W
     seg_len = torch.where(valid, ends - starts + 1, 0)
     n_segs = seg_start_flag.sum(dim=1)
-    overflow = n_segs > NBLK
-    last_len = torch.clamp(length - starts[:, NBLK - 1], min=0)
-    seg_len[:, NBLK - 1] = torch.where(overflow & valid[:, NBLK - 1],
-                                       last_len, seg_len[:, NBLK - 1])
+    overflow = n_segs > nblk
+    last_len = torch.clamp(length - starts[:, nblk - 1], min=0)
+    seg_len[:, nblk - 1] = torch.where(overflow & valid[:, nblk - 1],
+                                       last_len, seg_len[:, nblk - 1])
     new_len = seg_len.sum(dim=1)
 
     unchanged = (max_amp == 0.0) | (length == 0)
@@ -188,22 +195,22 @@ def move_segments(buf: torch.Tensor, starts: torch.Tensor, dst: torch.Tensor,
     """Move buf[starts[s]:+len] -> out[dst[s]:+len] per row, reading
     from the unmodified input (destinations do not overlap); positions
     outside moved segments keep their content. The plain version of the
-    compact kernel; ctts_tpu/ops/device_ops.py:581."""
+    compact kernel; ctts_tpu/ops/device_ops.py:581. Its work is the
+    moved samples and one gather, whatever the table's width."""
     n, W = buf.shape
+    S = starts.shape[1]
     dev = buf.device
-    iw = torch.arange(W, device=dev)
-    starts, dst, seg_len = starts.long(), dst.long(), seg_len.long()
-    moving = (seg_len > 0) & (starts != dst)
-    # src[p] = the input position whose sample lands at p; W is a dummy
-    # column that absorbs the masked lanes.
-    src = torch.cat([torch.arange(W, device=dev).expand(n, W),
-                     torch.zeros(n, 1, dtype=torch.int64, device=dev)],
-                    dim=1)
-    for s in range(starts.shape[1]):
-        m = (iw[None, :] < seg_len[:, s, None]) & moving[:, s, None]
-        tgt = torch.where(m, dst[:, s, None] + iw, W)
-        src.scatter_(1, tgt, torch.where(m, starts[:, s, None] + iw, 0))
-    return buf.gather(1, src[:, :W])
+    starts, dst, seg_len = (x.long().reshape(-1) for x in (starts, dst,
+                                                           seg_len))
+    moved = torch.where((seg_len > 0) & (starts != dst), seg_len, 0)
+    # One lane per moved sample: its segment, and its place in it.
+    seg = torch.repeat_interleave(torch.arange(n * S, device=dev), moved)
+    at = torch.arange(seg.shape[0], device=dev) - (
+        torch.cumsum(moved, 0) - moved)[seg]
+    # src[p] = the input position whose sample lands at p.
+    src = torch.arange(W, device=dev).repeat(n, 1)
+    src[seg // S, dst[seg] + at] = starts[seg] + at
+    return buf.gather(1, src)
 
 
 FR, HOP = 256, 128   # contour frame and hop (ctts.c:2206-2273)

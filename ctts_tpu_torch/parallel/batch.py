@@ -25,9 +25,17 @@ stream: the core, pack_rows and, with the codec, an encode of its own
 (the codec is block-local). The batch-global value tables
 (shared_plan_values) are computed once over the whole bucket and given
 to every shard unchanged, as JAX replicates them. The trim makes one
-small copy per shard and sums the overflow counts into one report; the
-drain walks the shards in order and stops at the n real rows, so a shard
-of pad rows only is never copied. The shards are enqueued one after
+small copy per shard (lengths, silence-table overflow counts, wire
+classes); the drain walks the shards in order and stops at the n real
+rows, so a shard of pad rows only is never copied.
+
+Silence tables hold 32 kept segments a region (dops.NBLK). A real row
+with a region of more runs again in the trim, with the other such rows
+of its bucket, on the first shard, without the codec and at tables wide
+enough for them (compiled.run_wide, plan_arrays.seg_width); the drain
+puts those outputs in the rows' places after it decodes the shards.
+The default configuration never overflows (tests/test_torch_config.py),
+so its batches never take that path. The shards are enqueued one after
 another from the calling thread, and the forward path calls no
 collective. Without a mesh the batch is one shard on one device, which
 is the unsplit path: the same calls as before the split existed.
@@ -67,11 +75,7 @@ from ctts_tpu_torch.synth.compiled import (  # noqa: F401 (re-exported)
     pack_rows,
     release_compiled,
 )
-from ctts_tpu_torch.synth.device import (
-    DeviceVoice,
-    SynthesisCore,
-    warn_overflow,
-)
+from ctts_tpu_torch.synth.device import DeviceVoice, SynthesisCore
 from ctts_tpu_torch.synth.plan_arrays import (
     PlanDims,
     bucket_dims,
@@ -108,6 +112,19 @@ class Shard(NamedTuple):
     device: torch.device
     core: SynthesisCore
     copy_stream: Optional[torch.cuda.Stream]
+
+
+class Enqueued(NamedTuple):
+    """One bucket's batch on its way: n real rows, `rows` slots a shard,
+    each shard's (payload, classes or None, out_lens, ovf), and the
+    bucket's dims and stacked host arrays (in slot order), from which
+    overflowing rows run again."""
+
+    n: int
+    rows: int
+    shards: list
+    dims: PlanDims
+    arrays: dict
 
 
 class BatchSynthesizer:
@@ -325,16 +342,16 @@ class BatchSynthesizer:
         return n_rows, [(idxs, self._enqueue_bucket(bd, prep))
                         for bd, idxs, prep in per_bucket]
 
-    def _enqueue_bucket(self, dims: PlanDims, prep):
+    def _enqueue_bucket(self, dims: PlanDims, prep) -> Enqueued:
         """Enqueue each shard's block of slots on its device, in mesh
-        order; returns (n, rows per shard, the shards' handles)."""
+        order."""
         n, stacked, shared = prep
         rows = stacked["speed"].shape[0] // len(self.shards)
-        return n, rows, [
+        return Enqueued(n, rows, [
             self._enqueue_shard(shard, dims, {
                 k: v[d * rows:(d + 1) * rows] for k, v in stacked.items()},
                 shared)
-            for d, shard in enumerate(self.shards)]
+            for d, shard in enumerate(self.shards)], dims, stacked)
 
     def _enqueue_shard(self, shard: Shard, dims: PlanDims, arrays: dict,
                        shared: dict):
@@ -350,28 +367,31 @@ class BatchSynthesizer:
         return n_rows, [(idxs, self._trim_bucket(handle))
                         for idxs, handle in per_bucket]
 
-    def _trim_bucket(self, handle):
+    def _trim_bucket(self, handle: Enqueued):
         """Per shard, sync the row lengths, the overflow counts and, with
-        the wire codec, the block classes in one small copy; report the
-        bucket's overflow once; then start copying the valid prefix of
-        the shard's packed buffer (or of its wire words) to pinned host
-        memory on the shard's copy stream, so that the copy runs beside
-        the next batch's compute. On a card the payload is the copy that
-        the replay made of its graph's output, not the output itself,
-        so the next batch's replay of the same graph cannot overwrite it
-        while it is being read. Shards past the n real rows hold pad
-        rows only and are not copied. Returns, per shard with real rows,
-        (host buffer, copy event or None, classes or None, row ends)."""
-        n, rows, handles = handle
-        trimmed, n_ovf = [], 0
+        the wire codec, the block classes in one small copy; then start
+        copying the valid prefix of the shard's packed buffer (or of its
+        wire words) to pinned host memory on the shard's copy stream, so
+        that the copy runs beside the next batch's compute. On a card the
+        payload is the copy that the replay made of its graph's output,
+        not the output itself, so the next batch's replay of the same
+        graph cannot overwrite it while it is being read. Shards past the
+        n real rows hold pad rows only and are not copied. Then the real
+        rows whose silence tables overflowed run again (_widen). Returns
+        (per shard with real rows, (host buffer, copy event or None,
+        classes or None, row ends); {slot: output} of the rows run
+        again)."""
+        n, rows, handles = handle.n, handle.rows, handle.shards
+        trimmed, over = [], []
         for d, (shard, (payload, classes, out_lens, ovf)) in enumerate(
                 zip(self.shards, handles)):
             small = [out_lens, ovf] + ([] if classes is None else [classes])
             small = torch.cat(small).cpu().numpy()
-            n_ovf += int(small[rows:2 * rows].sum())
             n_d = min(n - d * rows, rows)
             if n_d <= 0:
                 continue
+            over += [d * rows + int(i)
+                     for i in np.flatnonzero(small[rows:rows + n_d])]
             ends = np.cumsum(small[:n_d].astype(np.int64))
             total = int(ends[-1])
             if classes is not None:
@@ -381,8 +401,25 @@ class BatchSynthesizer:
                 count = total
             trimmed.append((*self._copy_prefix(shard, payload[:count]),
                             classes, ends))
-        warn_overflow(n_ovf)
-        return trimmed
+        return trimmed, self._widen(handle, over)
+
+    def _widen(self, handle: Enqueued, slots: list) -> dict:
+        """{slot: int16 output} of the bucket's rows at `slots`, run again
+        as one batch (padded to a multiple of 8 with copies of the last)
+        on the first shard at silence tables wide enough for them
+        (compiled.run_wide; it raises where a row still overflows)."""
+        if not slots:
+            return {}
+        pick = slots + slots[-1:] * (_next_batch_size(len(slots), 1)
+                                     - len(slots))
+        arrays = {k: v[pick] for k, v in handle.arrays.items()}
+        shared = shared_plan_values(arrays, self.voice.lengths_np,
+                                    handle.dims)
+        shard = self.shards[0]
+        with on_device(shard.device):
+            outs = compiled.run_wide(self._run_core, shard.core, handle.dims,
+                                     arrays, shared, len(slots))
+        return dict(zip(slots, outs))
 
     @staticmethod
     def _copy_prefix(shard: Shard, prefix: torch.Tensor):
@@ -406,10 +443,10 @@ class BatchSynthesizer:
     def _drain(self, trimmed):
         """Walk each bucket's shards in order, mapping slots back to row
         ids: wait for the shard's copy, decode it with the codec, and
-        slice its rows."""
+        slice its rows; a row that ran again takes that run's output."""
         n_rows, per_bucket = trimmed
         results: list = [None] * n_rows
-        for idxs, shards in per_bucket:
+        for idxs, (shards, wide) in per_bucket:
             slot = 0
             for host, done, classes, ends in shards:
                 if done is not None:
@@ -420,7 +457,8 @@ class BatchSynthesizer:
                                                   int(ends[-1]))
                 start = 0
                 for end in ends:
-                    results[idxs[slot]] = host[start:int(end)].copy()
+                    results[idxs[slot]] = (wide[slot] if slot in wide else
+                                           host[start:int(end)].copy())
                     start = int(end)
                     slot += 1
         return results

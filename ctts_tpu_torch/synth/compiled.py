@@ -21,7 +21,9 @@ bucket dims, the layout of the staged arrays (which fixes the batch size
 and the shared-table lengths), the wire flag and how the batch's fades
 run (plan_arrays.fade_passes, read from the host arrays like the trip
 count: where a configuration's fades reach back past their regions,
-the epilogue holds more passes of its fade and silence-table stages).
+the epilogue holds more passes of its fade and silence-table stages)
+and the silence tables' width (dops.NBLK = 32 for every batch; wider
+only where run_wide runs a batch's overflowing rows again).
   - inputs: the graphs read one static device byte buffer; a batch's
     arrays are packed into one pinned host buffer and reach it in one
     copy (Staging.upload);
@@ -66,17 +68,19 @@ import time
 from collections import Counter, OrderedDict
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ctts_tpu_torch.ops import hopper
 from ctts_tpu_torch.ops import wire as wire_codec
+from ctts_tpu_torch.ops.device_ops import NBLK
 from ctts_tpu_torch.synth.device import (
     Staging,
     SynthesisCore,
     check_zone_capacity,
     refine_depth,
 )
-from ctts_tpu_torch.synth.plan_arrays import PlanDims, fade_passes
+from ctts_tpu_torch.synth.plan_arrays import PlanDims, fade_passes, seg_width
 
 MAX_GRAPHS = 64   # the lru_cache size of _compiled_batch_core
 MAX_SEEN = 4 * MAX_GRAPHS
@@ -111,17 +115,18 @@ def _pack_encode(out, out_lens, ovf, wire: bool):
 
 
 def batch_epilogue(core: SynthesisCore, dims: PlanDims, st: dict,
-                   wire: bool, fades: int = 0):
+                   wire: bool, fades: int = 0, nblk: int = NBLK):
     """What the epilogue graph covers: the core's epilogue, pack and
     encode."""
-    return _pack_encode(*core.epilogue(dims, st, fades), wire)
+    return _pack_encode(*core.epilogue(dims, st, fades, nblk), wire)
 
 
 def batch_core(core: SynthesisCore, dims: PlanDims, ar: dict, trips: int,
-               wire: bool, fades: int = 0):
+               wire: bool, fades: int = 0, nblk: int = NBLK):
     """What a signature's graphs cover, op by op: the core, pack and
-    encode (`fades`: plan_arrays.fade_passes of the batch)."""
-    return _pack_encode(*core(dims, ar, trips, fades), wire)
+    encode (`fades`: plan_arrays.fade_passes of the batch; `nblk`: the
+    silence tables' width)."""
+    return _pack_encode(*core(dims, ar, trips, fades, nblk), wire)
 
 
 def _inputs(dims: PlanDims, arrays: dict, shared: dict) -> dict:
@@ -132,14 +137,14 @@ def _inputs(dims: PlanDims, arrays: dict, shared: dict) -> dict:
 
 
 def run_eager(core: SynthesisCore, dims: PlanDims, arrays: dict,
-              shared: dict, wire: bool):
+              shared: dict, wire: bool, nblk: int = NBLK):
     """batch_core on freshly staged inputs, op by op (the CPU path, a
     signature's first batch, and the reference a graph's output is held
     to)."""
     merged = _inputs(dims, arrays, shared)
     ar = Staging(merged).upload(merged, core.bank.device)
     return batch_core(core, dims, ar, refine_depth(merged), wire,
-                      fade_passes(dims, merged))
+                      fade_passes(dims, merged), nblk)
 
 
 class Signature(NamedTuple):
@@ -149,6 +154,7 @@ class Signature(NamedTuple):
     layout: tuple        # Staging.key(): names, dtypes and shapes
     wire: bool
     fades: int           # plan_arrays.fade_passes: how the fades run
+    nblk: int            # the silence tables' width
 
 
 class CapturedCore:
@@ -172,7 +178,7 @@ class CapturedCore:
             dev, lambda: core.refine_trip(dims, st))
         self.epilogue, epi, self.outputs = _capture(
             dev, lambda: batch_epilogue(core, dims, st, sig.wire,
-                                        sig.fades))
+                                        sig.fades, sig.nblk))
         # The stage state lives from the prologue's replay to the
         # epilogue's, which nothing else interleaves with: once no tensor
         # holds it, later captures may reuse its memory.
@@ -243,12 +249,12 @@ def _token(core: SynthesisCore) -> int:
 
 
 def signature(core: SynthesisCore, dims: PlanDims, arrays: dict,
-              shared: dict, wire: bool):
+              shared: dict, wire: bool, nblk: int = NBLK):
     """(Signature, staging layout, merged arrays) of one shard's batch."""
     merged = _inputs(dims, arrays, shared)
     layout = Staging(merged)
     sig = Signature(_token(core), str(core.bank.device), dims, layout.key(),
-                    bool(wire), fade_passes(dims, merged))
+                    bool(wire), fade_passes(dims, merged), nblk)
     return sig, layout, merged
 
 
@@ -278,15 +284,17 @@ def cached(sig: Signature, make):
 
 
 def run_batch(core: SynthesisCore, dims: PlanDims, arrays: dict,
-              shared: dict, wire: bool):
+              shared: dict, wire: bool, nblk: int = NBLK):
     """The compiled batch core: (payload, classes or None, out_lens,
     ovf) of one shard's rows, from its graphs on a CUDA device (eagerly
     at the signature's first batch, captured at its second) or eagerly
-    on the CPU."""
+    on the CPU. ovf [B] counts each row's regions with more than nblk
+    kept segments: such a row's audio is not the reference's, and the
+    caller runs it again (run_wide) before it returns it."""
     dev = core.bank.device
     if dev.type != "cuda":
-        return run_eager(core, dims, arrays, shared, wire)
-    sig, layout, merged = signature(core, dims, arrays, shared, wire)
+        return run_eager(core, dims, arrays, shared, wire, nblk)
+    sig, layout, merged = signature(core, dims, arrays, shared, wire, nblk)
     trips = refine_depth(merged)
     with torch.cuda.device(dev):
         # A capture synchronizes the device first, so no replay of a
@@ -294,8 +302,37 @@ def run_batch(core: SynthesisCore, dims: PlanDims, arrays: dict,
         entry = cached(sig, lambda: CapturedCore(core, sig, layout))
         if entry is None:
             return batch_core(core, dims, layout.upload(merged, dev), trips,
-                              wire, sig.fades)
+                              wire, sig.fades, nblk)
         return entry.replay(merged, trips)
+
+
+# Rows run again by run_wide, per silence-table width.
+widened: Counter = Counter()
+
+
+def run_wide(run, core: SynthesisCore, dims: PlanDims, arrays: dict,
+             shared: dict, n: int) -> list:
+    """The int16 outputs of the first n rows of a batch whose silence
+    tables overflowed at NBLK, run again through `run` (run_batch, or
+    run_eager) without the codec, with tables of plan_arrays.seg_width
+    of these rows: wide enough for every kept segment they can hold, so
+    a row that still overflows is a fault and raises. The wider tables
+    make a signature of their own; the default path never reaches it."""
+    nblk = seg_width(dims, arrays)
+    payload, _, lens, ovf = run(core, dims, arrays, shared, False,
+                                nblk=nblk)
+    B = lens.shape[0]
+    small = torch.cat([lens, ovf]).cpu().numpy()
+    if small[B:B + n].any():
+        raise RuntimeError(
+            f"silence tables of {nblk} slots overflowed in "
+            f"{int(small[B:B + n].sum())} region(s), past the bound of "
+            "plan_arrays.kept_segments_bound")
+    with _lock:
+        widened[nblk] += n
+    ends = np.cumsum(small[:n].astype(np.int64))
+    host = payload[:int(ends[-1])].cpu().numpy()
+    return np.split(host, ends[:-1])
 
 
 def signatures() -> list:

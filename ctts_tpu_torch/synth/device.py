@@ -30,7 +30,6 @@ WSOLA when the bucket stretches (1639-1646); int16 out (1650).
 
 from __future__ import annotations
 
-import sys
 from typing import Optional
 
 import numpy as np
@@ -240,11 +239,12 @@ class SynthesisCore(nn.Module):
         self.ubuf = voice.ubuf
 
     @torch.no_grad()
-    def forward(self, dims: PlanDims, ar: dict, trips: int, fades: int = 0):
+    def forward(self, dims: PlanDims, ar: dict, trips: int, fades: int = 0,
+                nblk: int = dops.NBLK):
         st = self.prologue(dims, ar)
         for _ in range(trips):
             self.refine_trip(dims, st)
-        return self.epilogue(dims, st, fades)
+        return self.epilogue(dims, st, fades, nblk)
 
     @torch.no_grad()
     def prologue(self, dims: PlanDims, ar: dict) -> dict:
@@ -281,20 +281,25 @@ class SynthesisCore(nn.Module):
         st["it"].add_(1)
 
     @torch.no_grad()
-    def epilogue(self, dims: PlanDims, st: dict, fades: int = 0):
+    def epilogue(self, dims: PlanDims, st: dict, fades: int = 0,
+                 nblk: int = dops.NBLK):
         """The final compose and everything after it: (out, out_len,
         ovf). `fades` is plan_arrays.fade_passes of the batch: 0 fades
         each in-region window where it lies; n >= 1 runs the fades and
         the silence tables n times and applies the parts of the fades
-        that reach back past their regions on the assembled sentence."""
+        that reach back past their regions on the assembled sentence.
+        `nblk` is the silence tables' width: ovf counts, per row, the
+        regions with more kept segments than that (the row's audio is
+        then not the reference's, and the caller runs it again at
+        plan_arrays.seg_width)."""
         ar = st["ar"]
         bufs, _, _ = self._compose(dims, ar, st["contrib_fn"](st["heads"]),
                                    st["fo"], False)
         if fades:
-            tables = self._reaching_fades(dims, ar, bufs, fades)
+            tables = self._reaching_fades(dims, ar, bufs, fades, nblk)
         else:
             bufs = self._tail_fades(dims, ar, bufs)
-            tables = self._seg_tables(dims, ar, bufs)
+            tables = self._seg_tables(dims, ar, bufs, nblk)
         starts, dst, seg_lens, comp_lens, ovf = tables
         bufs = compact(bufs, starts, dst, seg_lens, dims.WREG)
         bufs = bufs.reshape(-1, dims.R, dims.WREG)
@@ -536,7 +541,7 @@ class SynthesisCore(nn.Module):
     # -- fades that reach back past their regions (reference/ctts.c:
     #    3028-3039 on the whole buffer) --------------------------------------
 
-    def _reaching_fades(self, dims, ar, bufs, passes):
+    def _reaching_fades(self, dims, ar, bufs, passes, nblk):
         """The in-region fades and the silence tables when a fade may
         reach back past its region (plan_arrays.fade_passes >= 1). A fade
         at cursor c of region r is min(F, P) long, P = B_r + c the buffer
@@ -547,20 +552,24 @@ class SynthesisCore(nn.Module):
         taken first from the lengths before silence removal, then from the
         silence tables of the pass before: pass k gets the k-th region
         whose fade depends on it right, and the last pass's tables are
-        returned. Each pass but the last writes its windows back."""
+        returned, with the most overflowing regions of any pass (a pass
+        that overflows gives the next wrong lengths). Each pass but the
+        last writes its windows back."""
         active = ar["region_active"]
         pause = torch.where(active, ar["region_pause"].long(), 0)
         lens = torch.where(active, ar["region_len"].long(), 0)
         base = _excl_cumsum(lens + pause)
+        ovf = None
         for p in range(passes):
             saved = self._in_region_fades(dims, ar, bufs, base)
-            tables = self._seg_tables(dims, ar, bufs)
+            tables = self._seg_tables(dims, ar, bufs, nblk)
+            ovf = tables[4] if ovf is None else torch.maximum(ovf, tables[4])
             if p + 1 < passes:
                 for idx, win in reversed(saved):
                     bufs.scatter_(1, idx, win)
                 base = _excl_cumsum(
                     torch.where(active, tables[3].long(), 0) + pause)
-        return tables
+        return tables[:4] + (ovf,)
 
     def _in_region_fades(self, dims, ar, bufs, base):
         """Each in-region fade's part inside its region, in slot order, in
@@ -627,16 +636,16 @@ class SynthesisCore(nn.Module):
 
     # -- silence tables (device.py:1272-1300) -------------------------------
 
-    def _seg_tables(self, dims, ar, bufs):
-        """Kept-segment tables per region; returns (starts, dst, seg_len
-        [B, R, NBLK] i32 with MARGIN included, compacted lengths [B, R],
-        overflow count [B])."""
+    def _seg_tables(self, dims, ar, bufs, nblk):
+        """Kept-segment tables per region, nblk slots wide; returns
+        (starts, dst, seg_len [B, R, nblk] i32 with MARGIN included,
+        compacted lengths [B, R], overflow count [B])."""
         B, R, M = bufs.shape[0], dims.R, dims.MARGIN
         content = bufs.reshape(B * R, dims.WREG)[:, M:M + dims.CONTW]
         thr = ar["threshold"][:, None].expand(B, R).reshape(-1)
         length = ar["region_len"].reshape(-1)
         starts, seg_len, new_len, ovf = dops.silence_segments(
-            content, length, thr, dims.min_silence_samples)
+            content, length, thr, dims.min_silence_samples, nblk)
         remove = ar["region_remove"].reshape(-1)
         starts = torch.where(remove[:, None], starts, 0)
         seg_len = torch.where(remove[:, None], seg_len, 0)
@@ -645,7 +654,7 @@ class SynthesisCore(nn.Module):
         ovf_count = (ovf & remove).reshape(B, R).sum(1).to(torch.int32)
 
         def table(x):
-            return x.reshape(B, R, dops.NBLK).to(torch.int32).contiguous()
+            return x.reshape(B, R, nblk).to(torch.int32).contiguous()
 
         return (table(starts + M), table(dst), table(seg_len),
                 new_len.reshape(B, R), ovf_count)
@@ -735,14 +744,6 @@ class SynthesisCore(nn.Module):
         return sent, total_len
 
 
-def warn_overflow(n_ovf: int) -> None:
-    """Surface silence-table overflow (no silent caps)."""
-    if n_ovf > 0:
-        print(f"ctts_tpu_torch: {n_ovf} region(s) exceeded the "
-              f"{dops.NBLK}-segment silence table; remainder kept "
-              "uncompacted", file=sys.stderr)
-
-
 def lower_sentence(plan: SynthesisPlan, db: VoiceDatabase,
                    voice: DeviceVoice) -> tuple:
     """(dims, arrays, shared tables) of one sentence as a batch of one
@@ -766,15 +767,20 @@ def execute_plan_torch(plan: SynthesisPlan, db: VoiceDatabase,
     CUDA graphs and later ones replay them, so a process that speaks
     sentence after sentence replays one set of graphs per signature; a
     signature that never comes back (the CLI's one `synth` in a fresh
-    process) pays no capture. On the CPU it runs eagerly."""
+    process) pays no capture. On the CPU it runs eagerly. A sentence
+    with a region of more kept segments than the silence table's 32
+    runs again at a table wide enough for it (compiled.run_wide)."""
     from ctts_tpu_torch.synth import compiled
 
     if voice is None:
         voice = DeviceVoice(db, plan.target_rms)
-    packed, _, out_lens, ovf = compiled.run_batch(
-        voice.core(), *lower_sentence(plan, db, voice), False)
+    lowered = lower_sentence(plan, db, voice)
+    packed, _, out_lens, ovf = compiled.run_batch(voice.core(), *lowered,
+                                                  False)
     # The packed buffer holds the row's valid prefix: its length and the
     # overflow count come to the host in one copy.
     n, n_ovf = torch.cat([out_lens, ovf]).cpu().tolist()
-    warn_overflow(n_ovf)
+    if n_ovf:
+        return compiled.run_wide(compiled.run_batch, voice.core(), *lowered,
+                                 1)[0]
     return packed[:n].cpu().numpy()

@@ -23,6 +23,7 @@ import numpy as np
 
 from ctts_tpu_torch.config import CTTSConfig
 from ctts_tpu_torch.db.reader import VoiceDatabase
+from ctts_tpu_torch.ops.device_ops import NBLK
 from ctts_tpu_torch.ops.wsola import synthesis_hop_for_speed
 from ctts_tpu_torch.plan.compiler import OpKind, SynthesisPlan, ms_to_samples
 from ctts_tpu_torch.text.prosody import PhraseType, get_punctuation_pause_ms
@@ -344,6 +345,48 @@ def fade_passes(dims: PlanDims, arrays: dict) -> int:
     hit = np.zeros(pause.shape, np.int64)
     np.add.at(hit, (np.arange(pos.shape[0])[:, None], reg), cut)
     return 1 + int((hit > 0).sum(1).max(initial=0))
+
+
+def kept_segments_bound(length, min_silence: int):
+    """The most kept segments silence removal can leave in a region of
+    `length` samples (an int or an array of them), at min_silence
+    samples: floor(length / (L + 1)) + 1, L = max(M, K + 1), with M =
+    max(min_silence, 1) and K = max(min_silence // 4, 10).
+
+    Proof, against remove_silence_regions (synth/dsp_np.py; reference/
+    ctts.c:1634-1690). The region splits into maximal runs of silent and
+    of loud samples. A silent run of r >= M samples keeps its first K
+    and drops the other r - K (none when r <= K); every other run is
+    kept whole. So the kept samples form segments separated by gaps, and
+    each gap is the dropped tail of one silent run of r >= L samples,
+    running to that run's end. Every segment but the first starts right
+    after a gap, so with g the gaps followed by a kept sample there are
+    at most g + 1 segments. The sample after such a gap ends the run, so
+    it is loud: the g runs and their g loud followers are disjoint, and
+    length >= g (L + 1). A region that is all zero or empty is kept
+    whole (one segment or none). silence_segments classifies the samples
+    the same way (its long_run and prefix_ok masks), so its count obeys
+    the bound too. Since L >= M, the bound is at most floor((length + 1)
+    / (M + 1)) + 1; it is reached by runs of L silent samples each
+    followed by one loud sample."""
+    m = max(min_silence, 1)
+    run = max(m, max(min_silence // 4, MIN_KEPT_SILENCE) + 1)
+    return np.asarray(length, np.int64) // (run + 1) + 1
+
+
+def seg_width(dims: PlanDims, arrays: dict) -> int:
+    """The silence-table width that holds every kept segment of a batch
+    (arrays stacked [B, ...], or one plan's): the smallest power of two,
+    at least NBLK = 32, not below kept_segments_bound of any active
+    region that removes silence. The core runs every batch at 32 first;
+    only the rows whose regions overflow that table run again at this
+    width (compiled.run_wide)."""
+    remove = (np.asarray(arrays["region_remove"]).astype(bool)
+              & np.asarray(arrays["region_active"]).astype(bool))
+    lens = np.where(remove, arrays["region_len"], 0)
+    need = int(kept_segments_bound(lens, dims.min_silence_samples).max(
+        initial=1))
+    return _next_pow2(need, NBLK)
 
 
 @dataclasses.dataclass

@@ -91,6 +91,7 @@ def test_bench_line_has_bench_py_keys(voice_db, tmp_path):
     assert line["stretch_parity_max_abs_vs_oracle"] == 0.0
     assert line["stretch_parity_length_match"] is True
     assert line["mesh_matches_unsharded"] is True and line["mesh_error"] == ""
+    assert line["silence_rows_rerun"] == 0
     assert line["d2h_transfer_mbps"] > 0
     # The C reference is absent here: 0.0 and said so, nothing in its place.
     assert line["vs_baseline"] == 0.0 == line["c_reference_x_realtime"]

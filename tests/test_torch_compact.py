@@ -3,8 +3,10 @@
 The plain PyTorch version (move_segments over the region rows) must
 equal ctts_tpu's compact_units in interpret mode, bit for bit, on the
 fuzzed segment tables and shapes of tests/test_pallas_compact.py, with
-all trials as one batch. The card-only test holds the CUDA kernel to
-the plain version.
+all trials as one batch, and at a 128-slot table (the width a row
+takes when it runs again after its 32-slot table overflowed; the
+Pallas kernel's NBLK is a static argument). The card-only tests hold
+the CUDA kernel to the plain version at both widths.
 """
 
 import numpy as np
@@ -22,15 +24,18 @@ NBLK = jdops.NBLK
 TRIALS = 6
 
 
-def make_tables(rng):
-    starts = np.zeros((R, NBLK), np.int32)
-    dst = np.zeros((R, NBLK), np.int32)
-    seg_len = np.zeros((R, NBLK), np.int32)
+WIDE = 128
+
+
+def make_tables(rng, nblk=NBLK, segs=(0, 6), gap=400, length=700):
+    starts = np.zeros((R, nblk), np.int32)
+    dst = np.zeros((R, nblk), np.int32)
+    seg_len = np.zeros((R, nblk), np.int32)
     for r in range(R):
         pos = out = MARGIN
-        for s in range(int(rng.integers(0, 6))):
-            pos += int(rng.integers(0, 400))
-            ln = int(rng.integers(1, 700))
+        for s in range(int(rng.integers(*segs))):
+            pos += int(rng.integers(0, gap))
+            ln = int(rng.integers(1, length))
             if pos + ln > MARGIN + CONTW:
                 break
             starts[r, s], dst[r, s], seg_len[r, s] = pos, out, ln
@@ -39,16 +44,30 @@ def make_tables(rng):
     return starts, dst, seg_len
 
 
-@pytest.fixture(scope="module")
-def batch():
-    rng = np.random.default_rng(11)
+def make_batch(seed, **table):
+    rng = np.random.default_rng(seed)
     bufs, tables = [], []
     for _ in range(TRIALS):
         bufs.append(np.trunc(rng.uniform(-30000, 30000, (R, WREG))
                              ).astype(np.float32))
-        tables.append(make_tables(rng))
+        tables.append(make_tables(rng, **table))
     return (np.stack(bufs).reshape(TRIALS, R * WREG),
             *[np.stack([t[i] for t in tables]) for i in range(3)])
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return make_batch(11)
+
+
+@pytest.fixture(scope="module")
+def wide_batch():
+    """Up to 128 kept segments a region, short and close together, so
+    that the last slots of the table are used."""
+    out = make_batch(12, nblk=WIDE, segs=(WIDE // 2, WIDE + 1), gap=16,
+                     length=24)
+    assert (out[3][..., WIDE - 1] > 0).any()
+    return out
 
 
 def test_plain_matches_pallas(batch):
@@ -63,9 +82,23 @@ def test_plain_matches_pallas(batch):
         assert np.array_equal(np.asarray(want), got[b].numpy()), b
 
 
+def test_plain_matches_pallas_at_a_wide_table(wide_batch):
+    bufs, starts, dst, seg_len = wide_batch
+    got = hcompact.compact(*[torch.as_tensor(x) for x in wide_batch], WREG)
+    assert hcompact.launches == 0
+    for b in range(TRIALS):
+        want = compact_units(
+            jnp.asarray(bufs[b]), jnp.asarray(starts[b]), jnp.asarray(dst[b]),
+            jnp.asarray(seg_len[b]), R=R, WREG=WREG, NBLK=WIDE, MW=CONTW,
+            interpret=True)
+        assert np.array_equal(np.asarray(want), got[b].numpy()), b
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(batch, cuda_device):
-    args = [torch.as_tensor(x, device=cuda_device) for x in batch]
+@pytest.mark.parametrize("tables", ["batch", "wide_batch"])
+def test_kernel_matches_plain_on_card(request, tables, cuda_device):
+    args = [torch.as_tensor(x, device=cuda_device)
+            for x in request.getfixturevalue(tables)]
     before = hcompact.launches
     got = hcompact.compact(*args, WREG)
     assert hcompact.launches == before + 1

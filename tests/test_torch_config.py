@@ -23,7 +23,16 @@ rest are settings both packages hold. Besides:
     fails on the shapes there);
 (e) the default configuration keeps every fade in its window on the
     bench texts (the default path runs no extra stage), and a sentence
-    split is kept only where the fades stay inside its rows.
+    split is kept only where the fades stay inside its rows;
+(f) settings that leave more than 32 kept segments in a region (a
+    high silence_threshold with a short min_silence_ms): the rows whose
+    silence tables overflow run again at a wider table, on every path
+    (one sentence, the CLI, the served batch, execute, stream, a mesh
+    split and synthesize_across_hosts), also where the fades reach over
+    regions;
+    a run that still overflows raises;
+(g) the default configuration never overflows the 32-slot table on the
+    bench texts and the corpus, so its batches never run again.
 """
 
 import numpy as np
@@ -292,3 +301,216 @@ def test_default_fades_stay_in_their_windows(db, voice):
     assert not plan_arrays.split_keeps_fades(_config(word_pause_ms=0.0))
     assert not plan_arrays.split_keeps_fades(_config(fade_out_ms=400.0))
     assert plan_arrays.split_keeps_fades(_config(fade_out_ms=300.0))
+
+
+# (silence_threshold, min_silence_ms): regions with more kept segments
+# than the 32-slot silence table on TEXTS.
+OVERFLOWS = [(0.5, 1.0), (0.5, 2.0), (0.3, 1.0)]
+
+
+def _overflow_id(tm):
+    return f"silence_threshold={tm[0]},min_silence_ms={tm[1]}"
+
+
+def _widened():
+    from ctts_tpu_torch.synth import compiled
+
+    return sum(compiled.widened.values())
+
+
+@pytest.mark.parametrize("speed", [1.0, 1.5])
+@pytest.mark.parametrize("tm", OVERFLOWS, ids=_overflow_id)
+def test_overflowing_tables_held_to_oracle(db, voice, tm, speed):
+    """The one-sentence path and the served batch (natively lowered at
+    1.0, in Python at 1.5) with regions past 32 kept segments: the
+    oracle's lengths and samples, with rows run again on both paths."""
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+    from ctts_tpu_torch.synth.device import execute_plan_torch
+
+    cfg = _config(silence_threshold=tm[0], min_silence_ms=tm[1])
+    plans = [compile_plan(db, t, cfg, None, speed) for t in TEXTS]
+    refs = [execute_plan_oracle(p, db) for p in plans]
+    before = _widened()
+    for text, plan, ref in zip(TEXTS, plans, refs):
+        _held(execute_plan_torch(plan, db, voice), ref,
+              f"{tm} {text!r} at {speed}, one sentence")
+    mid = _widened()
+    assert mid > before
+    bs = BatchSynthesizer(db, cfg, device=CPU, dims_floor=FLOOR,
+                          native_plans=speed == 1.0)
+    for text, got, ref in zip(TEXTS, bs.synthesize(TEXTS, speed), refs):
+        _held(got, ref, f"{tm} {text!r} at {speed}, batch")
+    assert _widened() > mid
+
+
+def test_known_overflow_lengths(db, voice):
+    """The lengths the 32-slot table missed: 'a ,b' and 'como vai' at
+    silence_threshold 0.5, min_silence_ms 1 (10213 and 15555 samples
+    before the repair)."""
+    from ctts_tpu_torch.synth.device import execute_plan_torch
+
+    cfg = _config(silence_threshold=0.5, min_silence_ms=1.0)
+    for text, n in (("a ,b", 9669), ("como vai", 8526)):
+        plan = compile_plan(db, text, cfg, None, 1.0)
+        ref = execute_plan_oracle(plan, db)
+        assert ref.shape == (n,)
+        _held(execute_plan_torch(plan, db, voice), ref, text)
+
+
+def test_overflow_with_reaching_fades(db, voice):
+    """Fades that reach back over regions (fade_passes >= 1) and silence
+    tables that overflow: the core's repeated fade and table passes all
+    run at the wider table."""
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+    from ctts_tpu_torch.synth import plan_arrays
+    from ctts_tpu_torch.synth.device import execute_plan_torch, lower_sentence
+
+    cfg = _config(silence_threshold=0.5, min_silence_ms=1.0,
+                  fade_out_ms=1000.0, word_pause_ms=0.0)
+    texts = ["a ,b", "como vai", "bom dia. tudo bem."]
+    plans = [compile_plan(db, t, cfg, None, 1.0) for t in texts]
+    refs = [execute_plan_oracle(p, db) for p in plans]
+    passes = []
+    before = _widened()
+    for text, plan, ref in zip(texts, plans, refs):
+        dims, arrays, _ = lower_sentence(plan, db, voice)
+        passes.append(plan_arrays.fade_passes(dims, arrays))
+        assert plan_arrays.seg_width(dims, arrays) > 32, text
+        _held(execute_plan_torch(plan, db, voice), ref, f"{text!r}")
+    assert min(passes) >= 1 and max(passes) >= 2, passes
+    mid = _widened()
+    assert mid >= before + len(texts)
+    bs = BatchSynthesizer(db, cfg, device=CPU)
+    for text, got, ref in zip(texts, bs.synthesize(texts), refs):
+        _held(got, ref, f"{text!r}, batch")
+    assert _widened() > mid
+
+
+def test_overflow_on_every_batch_path(db, voice_db):
+    """execute, stream (rows re-run in the trim, outputs yielded in
+    order), a split over a mesh of two CPU shards, and
+    synthesize_across_hosts in a one-process gloo group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ctts_tpu_torch.parallel import make_mesh
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+    from ctts_tpu_torch.parallel.multihost import (
+        initialize,
+        synthesize_across_hosts,
+    )
+
+    cfg = _config(silence_threshold=0.5, min_silence_ms=1.0)
+    plans = [compile_plan(db, t, cfg, None, 1.0) for t in TEXTS]
+    refs = [execute_plan_oracle(p, db) for p in plans]
+    bs = BatchSynthesizer(db, cfg, device=CPU, dims_floor=FLOOR)
+    for text, got, ref in zip(TEXTS, bs.execute(plans), refs):
+        _held(got, ref, f"{text!r}, execute")
+    batches = [TEXTS[:3], TEXTS[3:], TEXTS[1:4]]
+    for texts, outs in zip(batches, bs.stream(iter(batches))):
+        for text, got in zip(texts, outs):
+            _held(got, refs[TEXTS.index(text)], f"{text!r}, stream")
+    split = BatchSynthesizer(db, cfg, mesh=make_mesh([CPU] * 2),
+                             dims_floor=FLOOR)
+    before = _widened()
+    for text, got, ref in zip(TEXTS, split.synthesize(TEXTS), refs):
+        _held(got, ref, f"{text!r}, split")
+    assert _widened() > before
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=60.0)
+    try:
+        outs = synthesize_across_hosts(bs, TEXTS)
+    finally:
+        dist.destroy_process_group()
+    for text, got, ref in zip(TEXTS, outs, refs):
+        _held(got, ref, f"{text!r}, across hosts")
+
+
+def test_cli_overflowing_config(voice_db, tmp_path, monkeypatch):
+    """The CLI's one synth with a config.yaml whose regions overflow the
+    32-slot table, against the same CLI's --executor=oracle."""
+    from ctts_tpu_torch.cli import main
+    from ctts_tpu_torch.utils.wav import read_wav
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "config.yaml").write_text(
+        "silence_threshold: 0.5\nmin_silence_ms: 1\n")
+    for wav, executor in (("out.wav", ["--executor=torch", "--device=cpu"]),
+                          ("ref.wav", ["--executor=oracle"])):
+        assert main(["ctts", "synth", voice_db, "como vai", wav,
+                     "--config=config.yaml", *executor]) == 0
+    ref = read_wav("ref.wav")
+    assert ref.shape == (8526,)
+    _held(read_wav("out.wav"), ref, "cli")
+
+
+def test_a_rerun_that_overflows_raises(db, voice, monkeypatch):
+    """Where the wider table still overflows (here: seg_width held at
+    32), both paths raise; no path returns uncompacted audio."""
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+    from ctts_tpu_torch.synth import compiled
+    from ctts_tpu_torch.synth.device import execute_plan_torch
+
+    monkeypatch.setattr(compiled, "seg_width", lambda dims, arrays: 32)
+    cfg = _config(silence_threshold=0.5, min_silence_ms=1.0)
+    plan = compile_plan(db, "como vai", cfg, None, 1.0)
+    with pytest.raises(RuntimeError, match="silence tables of 32 slots"):
+        execute_plan_torch(plan, db, voice)
+    bs = BatchSynthesizer(db, cfg, device=CPU)
+    with pytest.raises(RuntimeError, match="silence tables of 32 slots"):
+        bs.synthesize(["como vai", "que legal!"])
+
+
+def test_default_config_never_widens(db, voice):
+    """On the bench texts and the corpus at the default configuration,
+    every region's kept segments fit the 32-slot table, so no row runs
+    again. Checked without the core: silence_segments at its default
+    width on the oracle's word buffers (the audio the core's tables
+    read; the core equals the oracle there). The bound from the
+    lowered region lengths alone (seg_width) passes 32 on some of these
+    texts, which is why the first run does not take its width from it.
+    Then one served batch of the texts with the highest bounds runs no
+    row again."""
+    from bench import TEXTS as BENCH_TEXTS
+    from ctts_tpu_torch.ops import device_ops as tdops
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+    from ctts_tpu_torch.synth import dsp_np, oracle, plan_arrays
+    from ctts_tpu_torch.synth.device import lower_sentence
+    from ctts_tpu_torch.testing.corpus import CORPUS
+
+    cfg = config_defaults()
+    texts = list(BENCH_TEXTS) + [text for _, text, _ in CORPUS]
+    found = []
+    remove = dsp_np.remove_silence_regions
+
+    def counted(samples, threshold, min_silence):
+        _, seg_len, _, ovf = tdops.silence_segments(
+            torch.as_tensor(samples.astype(np.float32))[None],
+            torch.tensor([samples.shape[0]]), torch.tensor([threshold]),
+            min_silence)
+        found.append((int((seg_len > 0).sum()), bool(ovf[0])))
+        return remove(samples, threshold, min_silence)
+
+    widths = []
+    for text in texts:
+        plan = compile_plan(db, text, cfg, None, 1.0)
+        dims, arrays, _ = lower_sentence(plan, db, voice)
+        assert dims.min_silence_samples == 330
+        widths.append(plan_arrays.seg_width(dims, arrays))
+        dsp_np.remove_silence_regions = counted
+        try:
+            oracle.execute_plan_oracle(plan, db)
+        finally:
+            dsp_np.remove_silence_regions = remove
+    assert len(found) > 500
+    assert not any(ovf for _, ovf in found)
+    assert max(n for n, _ in found) <= tdops.NBLK
+    assert max(widths) > tdops.NBLK
+    highest = [t for _, t in sorted(zip(widths, texts), reverse=True)[:6]]
+    before = _widened()
+    BatchSynthesizer(db, cfg, device=CPU).synthesize(highest)
+    assert _widened() == before

@@ -119,15 +119,16 @@ def test_mesh_matches_jax_unsplit(db, split):
 
 
 @pytest.mark.parametrize("wire", [False, True], ids=["plain", "wire"])
-def test_trim_and_drain_layout(db, capsys, wire):
+def test_trim_and_drain_layout(db, wire):
     """Per-shard trim and drain on a ragged batch: 8 slots over 4 shards
     of 2, the last 3 slots pad rows (so shard 3 holds none and is not
     copied), slot 3 a zero-length row; slots map back to row ids
-    through a permutation; the shards' overflow counts sum into one
-    report."""
+    through a permutation; the real rows whose overflow count is above
+    0 (one per shard, and a pad row's is not read) run again as one
+    batch, and their outputs take those rows' places after the decode."""
     from ctts_tpu_torch.ops import wire as wire_codec
     from ctts_tpu_torch.parallel import BatchSynthesizer, make_mesh
-    from ctts_tpu_torch.parallel.batch import pack_rows
+    from ctts_tpu_torch.parallel.batch import Enqueued, pack_rows
 
     bs = BatchSynthesizer(db, config_defaults(), mesh=make_mesh([CPU] * 4),
                           wire=wire, native_plans=False)
@@ -150,16 +151,26 @@ def test_trim_and_drain_layout(db, capsys, wire):
         ovf = torch.tensor([d, 0], dtype=torch.int32)
         handles.append((payload, classes, ln, ovf))
     idxs = [4, 0, 3, 1, 2] + [-1] * 3        # slot -> row id
-    trimmed = bs._trim((n, [(idxs, (n, rows, handles))]))
-    assert len(trimmed[1][0][1]) == 3         # shard 3: pad rows only
-    assert "6 region(s) exceeded" in capsys.readouterr().err
+    widened = {}
+
+    def widen(handle, slots):
+        widened["slots"] = slots
+        return {s: np.full(s + 1, -s, np.int16) for s in slots}
+
+    bs._widen = widen
+    trimmed = bs._trim((n, [(idxs, Enqueued(n, rows, handles, None,
+                                            None))]))
+    shards, wide = trimmed[1][0][1]
+    assert len(shards) == 3                   # shard 3: pad rows only
+    assert widened["slots"] == [2, 4]         # shard 3's slot 6 is a pad
     got = bs._drain(trimmed)
     assert len(got) == n
     for slot in range(n):
-        want = out[slot, :lens[slot]]
+        want = wide[slot] if slot in wide else out[slot, :lens[slot]]
         assert got[idxs[slot]].dtype == np.int16
         assert np.array_equal(got[idxs[slot]], want), slot
     assert got[idxs[3]].shape == (0,)
+    assert np.array_equal(got[idxs[4]], np.full(5, -4, np.int16))
 
 
 def test_next_batch_size_mesh_multiples():

@@ -33,6 +33,7 @@ assert NativeEngine is engine and callable(native_available)
 import glob, importlib.util, os
 tools = sorted(glob.glob(os.path.join("tools", "torch_*.py")))
 assert "tools/torch_profile_stages.py" in tools, tools
+assert "tools/torch_generate_samples.py" in tools, tools
 for path in tools:
     spec = importlib.util.spec_from_file_location(
         os.path.basename(path)[:-3], path)

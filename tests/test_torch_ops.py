@@ -170,6 +170,87 @@ def test_silence_segments_bit_equal():
     assert bool(np.asarray(want[3])[2])      # the overflow row
 
 
+def _bound_rows(seed, W, min_silence, nblk):
+    """Rows that reach kept_segments_bound exactly: runs of L silent
+    samples (small values under the threshold), each followed by one
+    loud sample, L = the shortest run silence removal cuts; the first
+    row fills the nblk-slot table, the second is one run short of it
+    and starts loud, the third reaches the bound at a length that is not
+    a multiple of L + 1. Then random rows of silent runs and loud bursts
+    of every length, short enough that their bound is at most nblk."""
+    from ctts_tpu_torch.synth.plan_arrays import kept_segments_bound
+
+    rng = np.random.default_rng(seed)
+    L = max(min_silence, max(min_silence // 4, 10) + 1)
+    rows, lens, exact = [], [], []
+
+    def periodic(k, lead, tail):
+        x = np.concatenate([np.full(lead, 9000.0)]
+                           + [np.r_[rng.integers(-40, 41, L), 9000.0]
+                              for _ in range(k)]
+                           + [rng.integers(-40, 41, tail)])
+        return x.astype(np.float32)
+
+    for k, lead, tail in ((nblk - 1, 0, 0), (nblk - 2, 1, 0),
+                          (nblk // 2, 0, L - 1)):
+        rows.append(periodic(k, lead, tail))
+        exact.append(True)
+    for _ in range(9):
+        parts, n = [], 0
+        while n < (nblk - 1) * (L + 1) - 4:
+            run = int(rng.integers(1, 3 * L))
+            parts.append(rng.integers(-40, 41, run))
+            loud = int(rng.integers(1, 4))
+            parts.append(rng.choice([-1, 1], loud) * rng.integers(
+                2000, 30000, loud))
+            n += run + loud
+        rows.append(np.concatenate(parts).astype(np.float32)[
+            :(nblk - 1) * (L + 1)])
+        exact.append(False)
+    buf = np.zeros((len(rows), W), np.float32)
+    for r, x in enumerate(rows):
+        buf[r, :x.shape[0]] = x
+        lens.append(x.shape[0])
+    lens = np.array(lens, np.int32)
+    return buf, lens, np.array(exact), kept_segments_bound(lens, min_silence)
+
+
+@pytest.mark.parametrize("nblk,min_silence", [(64, 200), (512, 22)])
+def test_silence_segments_at_a_wide_table(nblk, min_silence):
+    """silence_segments at a table of nblk slots, on rows built to reach
+    kept_segments_bound: the count of kept segments equals the bound on
+    those rows and never exceeds it on any row, nothing overflows, and
+    the buffer moved by those tables equals the oracle's silence
+    removal."""
+    from ctts_tpu_torch.synth.dsp_np import remove_silence_regions
+
+    W = 16384
+    buf, lens, exact, bound = _bound_rows(nblk, W, min_silence, nblk)
+    assert bound[0] == nblk and bound.max() <= nblk
+    thr = 0.01
+    starts, seg_len, new_len, ovf = tdops.silence_segments(
+        _t(buf), _t(lens), torch.full((buf.shape[0],), thr), min_silence,
+        nblk)
+    assert starts.shape == (buf.shape[0], nblk)
+    count = (seg_len > 0).sum(1).numpy()
+    assert not ovf.any()
+    assert (count <= bound).all(), (count, bound)
+    assert (count[exact] == bound[exact]).all(), (count, bound)
+    dst = torch.cumsum(seg_len, 1) - seg_len
+    moved = tdops.move_segments(_t(buf), starts, dst, seg_len).numpy()
+    for r in range(buf.shape[0]):
+        want = remove_silence_regions(buf[r, :lens[r]].astype(np.int16),
+                                      thr, min_silence)
+        assert int(new_len[r]) == want.shape[0], r
+        assert np.array_equal(moved[r, :want.shape[0]], want), r
+    # One table narrower, the full row overflows (its last slot is the
+    # catch-all); the row one run short still fits.
+    _, _, _, ovf = tdops.silence_segments(
+        _t(buf[:2]), _t(lens[:2]), torch.full((2,), thr), min_silence,
+        nblk - 1)
+    assert ovf.tolist() == [True, False]
+
+
 @pytest.mark.parametrize("seg_off", [0, 700])
 def test_contour_segment_bit_equal(seg_off):
     """Gather resample + two-term OLA vs the JAX shifted selects and
