@@ -25,7 +25,13 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      window already in shared memory); for compose and assemble the
      time of a zero fill of their output; for pitch an empty kernel's
      launch (the launch floor); compact also at a silence table of
-     NBLK_WIDE = 512 slots (the widest phase 9 runs again at);
+     NBLK_WIDE = 512 slots (the widest phase 9 runs again at) and on
+     adversarial tables (unmoved, adjacent and zero-length slots, a
+     segment ending at MARGIN + CONTW), each beside one torch.gather;
+     the silence tables (silence_tables) on speech-like region rows at
+     the default setting and the three of phase 9 that overflow the
+     32-slot table, each at NBLK and NBLK_WIDE slots (no library call
+     computes them);
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts (batch i: the texts rotated by i, 7 times over, and
      16 rows of text i, so that every batch differs and a batch
@@ -122,8 +128,10 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      capture, replay): replays equal to the eager pass bit for bit, the
      eager pass held to the oracle, the rows each pass ran again and the
      table widths they ran at (above 0 in the three overflow settings,
-     0 in the rest); min_silence_ms: 0 must be refused at
-     lowering with a ValueError naming the key, on both paths.
+     0 in the rest), and a fourth pass of replays whose launches
+     come from the profiler's trace, held to the wrappers' counts (the
+     silence tables and K3 launched); min_silence_ms: 0 must be refused
+     at lowering with a ValueError naming the key, on both paths.
 With --kernels-only the script stops after phase 4.
 The script imports nothing of the JAX package: the oracle, the voice
 builder and the plan compiler are the port's own copies. The last line
@@ -163,6 +171,11 @@ NBLK = 32
 # The widest silence table the configurations of phase 9 run again at
 # (plan_arrays.seg_width): K3 is also checked and timed at it.
 NBLK_WIDE = 512
+# The silence tables' cases of phase 4: (silence_threshold, min_silence
+# samples) of the default configuration and of phase 9's three settings
+# that overflow the 32-slot table, each at NBLK and NBLK_WIDE slots.
+SILENCE_CASES = {"default": (0.02, 330), "0.5, 1 ms": (0.5, 22),
+                 "0.5, 2 ms": (0.5, 44), "0.3, 1 ms": (0.3, 22)}
 # WSOLA cases: speed, hop and output width of that bucket
 # (plan_arrays._omax_for), and the sentences of kernel_inputs taken: all
 # B, or the one full-length row (what execute_plan_torch runs, B = 1).
@@ -331,6 +344,10 @@ def kernel_inputs(np):
             dst[b, r, kept:] = out
     ins["compact"] = (bufs, starts, dst, seg_len)
     ins["compact_wide"] = wide_tables(np, rng)
+    # Generators of their own, so that the other cases keep their inputs.
+    ins["compact_adversarial"] = adversarial_tables(
+        np, np.random.default_rng(6))
+    ins["silence"] = silence_rows(np, np.random.default_rng(5))
 
     # assemble: cumsum offsets of active regions, margin overlap.
     active = rng.random((B, R)) < 0.8
@@ -378,6 +395,85 @@ def wide_tables(np, rng):
     starts = np.where(used, dst + np.cumsum(gap, 2), 0)
     assert int((starts + seg_len).max()) <= MARGIN + CONTW
     return tuple(x.astype(np.int32) for x in (starts, dst, seg_len))
+
+
+def adversarial_tables(np, rng):
+    """Kept-segment tables of NBLK slots that hold silence removal's
+    invariants at their edges, four kinds of row in turn: segments that
+    do not move (starts == dst) before moving ones; zero-length slots
+    between used ones; adjacent segments (no gap) with the last one
+    ending at MARGIN + CONTW; every slot used by segments of 1-3
+    samples."""
+    shape = (B, R, NBLK)
+    starts, dst, seg_len = (np.zeros(shape, np.int32) for _ in range(3))
+    for b in range(B):
+        for r in range(R):
+            kind = (b * R + r) % 4
+            pos = out = MARGIN
+            k = 0
+            while k < NBLK:
+                if kind == 1 and k % 3 == 1:      # a zero-length slot
+                    starts[b, r, k] = int(rng.integers(0, MARGIN + CONTW))
+                    dst[b, r, k] = out
+                    k += 1
+                    continue
+                gap = (0 if (kind == 0 and k < 3) or kind == 2
+                       else int(rng.integers(0, 600)))
+                ln = (int(rng.integers(1, 4)) if kind == 3
+                      else int(rng.integers(1, 2000)))
+                if kind == 2 and k == 0:
+                    gap = int(rng.integers(1, 400))
+                last = pos + gap + ln >= MARGIN + CONTW
+                if kind == 2 and (last or k == NBLK - 1):
+                    ln = MARGIN + CONTW - pos - gap
+                elif last:
+                    break
+                pos += gap
+                starts[b, r, k], dst[b, r, k], seg_len[b, r, k] = pos, out, ln
+                pos += ln
+                out += ln
+                k += 1
+                if pos >= MARGIN + CONTW:
+                    break
+            dst[b, r, k:] = out
+    assert int((starts + seg_len).max()) == MARGIN + CONTW
+    return starts, dst, seg_len
+
+
+def silence_rows(np, rng):
+    """Region rows of speech-like content for the silence tables, at the
+    serving bucket: voiced stretches (two partials and noise, 2000-12000
+    peak) between silences of 1-2000 samples of low noise, each region
+    of a random length up to CONTW; every 7th region empty, every 11th
+    all zero, every 5th not removed, every 13th of length CONTW. Returns
+    (bufs [B, R*WREG] f32, region_len [B, R] i32, region_remove [B, R]
+    bool)."""
+    bufs = np.zeros((B, R * WREG), np.float32)
+    lens = rng.integers(1, CONTW + 1, (B, R)).astype(np.int32)
+    k = np.arange(B * R).reshape(B, R)
+    lens[k % 13 == 0] = CONTW
+    lens[k % 7 == 0] = 0
+    remove = k % 5 != 0
+    t = np.arange(CONTW, dtype=np.float32)
+    for b in range(B):
+        for r in range(R):
+            n = int(lens[b, r])
+            if n == 0 or k[b, r] % 11 == 0:
+                continue
+            x = rng.normal(0, 8, n)
+            pos = 0
+            while pos < n:
+                ln = int(rng.integers(200, 3000))
+                f0 = rng.uniform(80, 300)
+                seg = t[:min(ln, n - pos)]
+                x[pos:pos + ln] += rng.uniform(2000, 12000) * (
+                    np.sin(2 * np.pi * f0 * seg / SAMPLE_RATE)
+                    + 0.4 * np.sin(2 * np.pi * 2.7 * f0 * seg / SAMPLE_RATE))
+                x[pos:pos + ln] += rng.normal(0, 300, seg.shape[0])
+                pos += ln + int(rng.integers(1, 2000))
+            o = r * WREG + MARGIN
+            bufs[b, o:o + n] = np.trunc(np.clip(x, -32768, 32767))
+    return bufs, lens, remove
 
 
 def source_index(np, starts, dst, seg_len):
@@ -485,6 +581,8 @@ def kernel_tensors(torch, ins, dev) -> dict:
      t["a_c"]) = on(*ins["compose"])
     t["bufs"], t["starts"], t["dst"], t["seg_len"] = on(*ins["compact"])
     t["wide_tables"] = on(*ins["compact_wide"])
+    t["adv_tables"] = on(*ins["compact_adversarial"])
+    t["sil_bufs"], t["region_len"], t["remove"] = on(*ins["silence"])
     _, t["offsets"], t["live"] = on(*ins["assemble"])
     t["adv_offsets"], t["adv_live"] = on(*ins["assemble_adversarial"])
     for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
@@ -492,6 +590,26 @@ def kernel_tensors(torch, ins, dev) -> dict:
         t[tag] = (sent, tw.energy_table(sent), counts,
                   tw.run_counts(counts, SMAX, out_size, hop))
     return t
+
+
+def silence_case(tag: str, nblk: int) -> str:
+    """Phase 4's name of a silence-table case (the default at NBLK is the
+    kernel's own line)."""
+    if tag == "default" and nblk == NBLK:
+        return "silence_tables"
+    return f"silence_tables {tag} NBLK={nblk}"
+
+
+def silence_bound(np, lens, remove, nblk: int) -> dict:
+    """The silence tables' least work: the live samples of every removed
+    region read once (the kernel reads them twice: the max, then the
+    runs), the region tables read once and the tables written once; 3
+    operations a live sample (|x|, the max, the compare)."""
+    live = np.where(remove, np.clip(lens, 0, CONTW), 0).astype(np.int64)
+    n = int(live.sum())
+    nbytes = (4 * n + lens.nbytes + remove.nbytes + 4 * B
+              + 3 * 4 * B * R * nblk + 8 * B * R + 4 * B)
+    return dict(bound(nbytes, 3.0 * n), live_samples=n)
 
 
 def kernel_cases(hopper, t) -> dict:
@@ -502,12 +620,16 @@ def kernel_cases(hopper, t) -> dict:
     TOT, OUTW = R * WREG, MARGIN + SMAX
     # An output width that is not a multiple of 4: the scalar path.
     OUTW_ODD = OUTW - 2
-    pitch, compose, compact, assemble = (hopper.pitch, hopper.compose,
-                                         hopper.compact, hopper.assemble)
+    import torch
+
+    pitch, compose, compact, assemble, silence = (
+        hopper.pitch, hopper.compose, hopper.compact, hopper.assemble,
+        hopper.silence)
     cp = (t["contrib"], t["fo"], t["base_off"], t["cf_in"], t["n_eff"],
           t["a_c"], TOT, True)
     cm = (t["bufs"], t["starts"], t["dst"], t["seg_len"], WREG)
     cw = (t["bufs"], *t["wide_tables"], WREG)
+    ca = (t["bufs"], *t["adv_tables"], WREG)
     cases = {
         "pitch_corr": (lambda: pitch.pitch_corr(t["seg"], t["ana"]),
                        lambda: pitch.pitch_corr_plain(t["seg"], t["ana"]),
@@ -522,7 +644,19 @@ def kernel_cases(hopper, t) -> dict:
         f"compact NBLK={NBLK_WIDE}": (
             lambda: compact.compact(*cw),
             lambda: compact.compact_plain(*cw), 20, 3),
+        "compact adversarial": (
+            lambda: compact.compact(*ca),
+            lambda: compact.compact_plain(*ca), 20, 3),
     }
+    for tag, (thr, ms) in SILENCE_CASES.items():
+        for nblk in (NBLK, NBLK_WIDE):
+            args = (t["sil_bufs"], t["region_len"], t["remove"],
+                    torch.full((B,), thr, device=t["sil_bufs"].device),
+                    ms, nblk, MARGIN, CONTW)
+            cases[silence_case(tag, nblk)] = (
+                lambda args=args: silence.silence_tables(*args),
+                lambda args=args: silence.silence_tables_plain(*args),
+                20, 3)
     for tag, offs, live, outw in (
             ("assemble", "offsets", "live", OUTW),
             ("assemble adversarial", "adv_offsets", "adv_live", OUTW),
@@ -595,8 +729,9 @@ def check_kernels(torch, np, hopper) -> dict:
     compact_work = bound(2 * bufs.nbytes + 3 * t["starts"].nbytes, 0.0)
     wide_work = bound(2 * bufs.nbytes + 3 * t["wide_tables"][0].nbytes,
                       0.0)
-    # The int64 starts and ends _first_flagged makes for the silence
-    # tables of B*R regions at this width (the kernel does not see them).
+    adv_work = bound(2 * bufs.nbytes + 3 * t["adv_tables"][0].nbytes, 0.0)
+    # The int64 starts and ends _first_flagged made for the silence
+    # tables of B*R regions at this width (the plain version's).
     wide_work["first_flagged_int64_bytes_each"] = 8 * B * R * (NBLK_WIDE
                                                                + 1)
 
@@ -608,7 +743,7 @@ def check_kernels(torch, np, hopper) -> dict:
         return bound(4 * n + 2 * offs.nbytes + 4 * B * outw, float(n))
 
     assemble_work = assemble_bound(*ins["assemble"][1:], OUTW)
-    adv_work = assemble_bound(*ins["assemble_adversarial"], OUTW)
+    asm_adv_work = assemble_bound(*ins["assemble_adversarial"], OUTW)
     odd_work = assemble_bound(*ins["assemble"][1:], OUTW_ODD)
     # The output's write alone: a zero fill of its bytes.
     fill = torch.empty(B, OUTW, dtype=torch.float32, device=dev)
@@ -621,6 +756,8 @@ def check_kernels(torch, np, hopper) -> dict:
                                   device=dev)
     wide_idx = torch.as_tensor(source_index(np, *ins["compact_wide"]),
                                device=dev)
+    adv_idx = torch.as_tensor(
+        source_index(np, *ins["compact_adversarial"]), device=dev)
     # assemble: one index_add of every live sample at its output slot
     # (each dead sample goes to a dropped slot of its own, so no slot
     # draws contended atomics; <= 2 adds land on a live slot, so the
@@ -639,13 +776,21 @@ def check_kernels(torch, np, hopper) -> dict:
     works = {"pitch_corr": pitch_work, "pitch_corr L=220": pitch220_work,
              "compose": compose_work, "compact": compact_work,
              f"compact NBLK={NBLK_WIDE}": wide_work,
-             "assemble": assemble_work, "assemble adversarial": adv_work,
+             "compact adversarial": adv_work,
+             "assemble": assemble_work,
+             "assemble adversarial": asm_adv_work,
              "assemble scalar path": odd_work}
+    _, sil_lens, sil_remove = ins["silence"]
+    for tag in SILENCE_CASES:
+        for nblk in (NBLK, NBLK_WIDE):
+            works[silence_case(tag, nblk)] = silence_bound(
+                np, sil_lens, sil_remove, nblk)
     libraries = {
         "pitch_corr": pitch_conv(torch, seg, ana),
         "pitch_corr L=220": pitch_conv(torch, seg, t["ana220"]),
         "compact": lambda: (bufs.gather(1, compact_idx),),
         f"compact NBLK={NBLK_WIDE}": lambda: (bufs.gather(1, wide_idx),),
+        "compact adversarial": lambda: (bufs.gather(1, adv_idx),),
         "assemble": lambda: (torch.index_add(asm_zero, 0, asm_idx, bufs_flat)
                              [:B * OUTW].reshape(B, OUTW),)}
     for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
@@ -2068,7 +2213,7 @@ CONFIG_TEXTS = ["como vai", "que legal!", "como se chama?",
 CONFIG_SPEEDS = (1.0, STRETCH_SPEED)
 
 
-def run_config_cells(torch, np, dbp: str) -> dict:
+def run_config_cells(torch, np, hopper, dbp: str) -> dict:
     """Phase 9: for each CONFIG_CELLS setting and speed, CONFIG_TEXTS
     through BatchSynthesizer.synthesize (one batch in the bench's bucket,
     served: graphs and the wire codec) and through execute_plan_torch one
@@ -2084,7 +2229,9 @@ def run_config_cells(torch, np, dbp: str) -> dict:
     (plan_arrays.fade_passes: 0 for fades kept in their windows), the
     rows each pass ran again at a wider silence table and those tables'
     widths (compiled.widened): above 0 in every pass of the
-    CONFIG_OVERFLOWS cells, 0 in the others."""
+    CONFIG_OVERFLOWS cells, 0 in the others. A fourth pass runs under
+    traced_launches (the trace's counts equal the wrappers', the
+    silence tables and K3 launched) and equals the eager core too."""
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
@@ -2170,8 +2317,18 @@ def run_config_cells(torch, np, dbp: str) -> dict:
                         or total["capture"] != len(new)):
                     raise RuntimeError(f"{what}: runs {runs} for "
                                        f"{len(new)} new signatures")
+                # A fourth pass (replays), its launches read from the
+                # profiler's trace and held to the wrappers' counts.
+                traced, launches, _ = traced_launches(
+                    torch, hopper, run, f"{what}: the traced pass")
+                missing = [k for k in ("silence_tables", "compact")
+                           if launches[k] <= 0]
+                if missing:
+                    raise RuntimeError(f"{what}: kernels not launched by "
+                                       f"the traced pass: {missing}")
                 eager = eager_run()
-                equal_outputs(np, outs, [eager] * len(kinds),
+                equal_outputs(np, outs + [traced],
+                              [eager] * (len(kinds) + 1),
                               f"{what}: passes vs the eager core")
                 worst = max(held_to(np, o, ref, f"{what}: {t!r}")
                             for t, o, ref in zip(CONFIG_TEXTS, eager, refs))
@@ -2179,7 +2336,7 @@ def run_config_cells(torch, np, dbp: str) -> dict:
                     "setting": name, "speed": speed, "way": way,
                     "oracle_max_abs_diff": worst, "passes_equal_eager": True,
                     "signatures": len(new), "compiled_runs": runs,
-                    "wall_s": walls,
+                    "wall_s": walls, "traced_launches": launches,
                     "fade_passes": sorted({sig.fades for sig in new}),
                     "rows_rerun": reruns, "table_widths": sorted(widths)})
         bs = twin = voice = None
@@ -2189,6 +2346,8 @@ def run_config_cells(torch, np, dbp: str) -> dict:
 
 
 LIBRARY_NONE = {
+    "silence_tables": "none: no single PyTorch call computes the "
+                      "kept-segment tables",
     "compose": "none: units are placed in sequence, each reading the "
                "last one's write",
     "wsola_frames": "none: each frame's search reads the previous "
@@ -2244,7 +2403,7 @@ def main() -> int:
         say("one_sentence", run_one_sentence(
             torch, np, hopper, os.path.join(root, "voice.db")))
         say("config_cells", run_config_cells(
-            torch, np, os.path.join(root, "voice.db")))
+            torch, np, hopper, os.path.join(root, "voice.db")))
     compiled.release_compiled()
     say("bench", run_bench(np))
 

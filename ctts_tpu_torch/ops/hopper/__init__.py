@@ -2,7 +2,8 @@
 
 One module per Pallas kernel of ctts_tpu/ops/pallas: pitch, compose,
 compact and assemble on every path, wsola (both WSOLA kernels) on the
-speed != 1.0 path. Each holds the wrapper (the CUDA kernel for a CUDA
+speed != 1.0 path; and silence, the silence-removal tables, a stage the
+JAX package left to XLA. Each holds the wrapper (the CUDA kernel for a CUDA
 tensor, the plain PyTorch version for a CPU tensor), the plain version
 itself or its import, a launch counter that only a kernel launch
 increments, and GLOBALS, the __global__ functions a launch runs. Under
@@ -21,10 +22,11 @@ from ctts_tpu_torch.ops.hopper import (
     compact,
     compose,
     pitch,
+    silence,
     wsola,
 )
 
-MODULES = (pitch, compose, compact, assemble, wsola)
+MODULES = (pitch, compose, silence, compact, assemble, wsola)
 
 
 def reset_launches() -> None:

@@ -40,6 +40,8 @@ SIGNATURES = {
     "ctts_compose": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P],
     "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ctts_silence_tables": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],

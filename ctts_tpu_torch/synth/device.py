@@ -41,6 +41,7 @@ from ctts_tpu_torch.ops import device_ops as dops
 from ctts_tpu_torch.ops.exact import sqrt_rn
 from ctts_tpu_torch.ops.hopper.assemble import assemble
 from ctts_tpu_torch.ops.hopper.compact import compact
+from ctts_tpu_torch.ops.hopper.silence import silence_tables
 from ctts_tpu_torch.ops.hopper.compose import compose
 from ctts_tpu_torch.ops.luts import fade_in_gain, fade_out_gain, sine_fade_gain
 from ctts_tpu_torch.ops.quant import q16, trunc16
@@ -640,24 +641,9 @@ class SynthesisCore(nn.Module):
         """Kept-segment tables per region, nblk slots wide; returns
         (starts, dst, seg_len [B, R, nblk] i32 with MARGIN included,
         compacted lengths [B, R], overflow count [B])."""
-        B, R, M = bufs.shape[0], dims.R, dims.MARGIN
-        content = bufs.reshape(B * R, dims.WREG)[:, M:M + dims.CONTW]
-        thr = ar["threshold"][:, None].expand(B, R).reshape(-1)
-        length = ar["region_len"].reshape(-1)
-        starts, seg_len, new_len, ovf = dops.silence_segments(
-            content, length, thr, dims.min_silence_samples, nblk)
-        remove = ar["region_remove"].reshape(-1)
-        starts = torch.where(remove[:, None], starts, 0)
-        seg_len = torch.where(remove[:, None], seg_len, 0)
-        new_len = torch.where(remove, new_len, length.long())
-        dst = M + _excl_cumsum(seg_len)
-        ovf_count = (ovf & remove).reshape(B, R).sum(1).to(torch.int32)
-
-        def table(x):
-            return x.reshape(B, R, nblk).to(torch.int32).contiguous()
-
-        return (table(starts + M), table(dst), table(seg_len),
-                new_len.reshape(B, R), ovf_count)
+        return silence_tables(bufs, ar["region_len"], ar["region_remove"],
+                              ar["threshold"], dims.min_silence_samples,
+                              nblk, dims.MARGIN, dims.CONTW)
 
     # -- contour + interrogative fall (device.py:1324-1565) -----------------
 

@@ -302,3 +302,26 @@ def test_stage_attribution_splits_at_spins():
         tool.attribute(events, ["a", "b"])
     with pytest.raises(RuntimeError, match="before the first pause"):
         tool.attribute([ev("k0", -5, 1)] + events, ["a", "b", "a"])
+
+
+def test_spin_loss_names_the_pause_without_a_spin():
+    tool = _tool()
+
+    def ev(name, ts, dur, corr, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "args": {"correlation": corr}}
+
+    spin = tool.SPIN_KERNEL
+    # Three pauses of 20, 30 and 40 ms; the trace lost the second spin,
+    # whose host-side launch (correlation 3) is still there.
+    events = [ev(spin, 0, 20000, 1), ev("k1", 20001, 5, 2),
+              ev(spin, 60000, 40000, 4), ev("k2", 100001, 5, 5)]
+    events += [ev("cudaLaunchKernel", 0, 1, c, "cuda_runtime")
+               for c in (1, 2, 3, 4, 5)]
+    with pytest.raises(tool.SpinLost):
+        tool.attribute(events, ["a", "b", "c"])
+    got = tool.spin_loss(events, [20.5, 30.2, 40.1], ["a", "b", "c"])
+    assert got["missing"] == [{"pause": 1, "of": 3, "label_after": "b",
+                               "spin_ms": 30.2}]
+    assert got["spins_traced"] == 2 and got["unaligned_spins"] == 0
+    assert got["launches_without_kernel"] == 1

@@ -25,6 +25,7 @@ for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 assert "ctts_tpu_torch.bench" in names
 assert "ctts_tpu_torch.runtime.native" in names
+assert "ctts_tpu_torch.ops.hopper.silence" in names
 # runtime/__init__.py re-exports the native binding, as the JAX
 # package's runtime/__init__.py does.
 from ctts_tpu_torch.runtime import NativeEngine, native_available

@@ -29,7 +29,9 @@ served as a card serves it (the wire codec on). Stages, in order:
   prologue (bank pick and crossfade curves; head pitch, K2), each refine
   trip (compose K1; boundary_heads, K2; contributions and glue), the
   epilogue's contributions and glue, the final compose (K1), tail
-  fades, the silence tables (their torch.cumsum scans on a row of their
+  fades, the silence tables (on the card one ctts_silence_tables launch
+  and the fill of its overflow counts; a checkout from before that
+  kernel runs the XLA-form ops, its torch.cumsum scans on a row of their
   own), compaction (K3), the contour and interrogative-fall zones,
   region_post, assembly (K4), WSOLA (K5 with its energy table and
   finish; at 1.5), pack, wire encode, and "other" (outside every stage).
@@ -39,6 +41,11 @@ Checks, each printed, the exit code 1 where one fails:
   - the batch's captured graphs (prologue, the trip graph once per trip,
     epilogue), replayed behind a spin kernel, take within 5% of that
     total.
+A trace that lacks a pause's spin kernel (a rare event, seen at 1.5)
+is described (which pause, the spin time its CUDA
+events measured, the kernel launches of the run that have no kernel in
+the trace) in "spin_losses", and the profiled batch runs again, at
+most SPIN_RETRIES times.
 It also prints the device idle share of the served 3-batch stream
 without the profiler, 1 - batches x (the graphs' device ms a batch) /
 the stream's wall time (medians of REPEATS streams), beside
@@ -64,7 +71,8 @@ PAUSE_CYCLES = 40_000_000   # ~20 ms, before each stage
 OTHER = "other"
 PAUSE = "(spin)"
 SPIN_KERNEL = "spin_kernel"     # what torch.cuda._sleep launches
-SCANS = "silence tables: cumsum scans"
+SCANS = "silence tables: cumsum scans (XLA form)"
+SPIN_RETRIES = 3
 
 
 def _chip_smoke():
@@ -140,6 +148,40 @@ class StageMarks:
         return short
 
 
+class SpinLost(RuntimeError):
+    """The trace holds fewer or more spin kernels than the run paused."""
+
+
+def spin_loss(events: list, spin_ms: list, labels: list) -> dict:
+    """What a trace that lost spin kernels shows: the pauses whose spin
+    is missing (the trace's spins aligned in order with the spin times
+    the CUDA events measured, spin_ms, within 10%), and the kernel
+    launches on the host side (cudaLaunchKernel and the like) whose
+    correlation id has no kernel in the trace."""
+    spins = sorted((e for e in events if e.get("ph") == "X"
+                    and e.get("cat") == "kernel"
+                    and SPIN_KERNEL in e.get("name", "")),
+                   key=lambda e: float(e["ts"]))
+    got = [float(e["dur"]) / 1e3 for e in spins]
+    missing, j = [], 0
+    for i, want in enumerate(spin_ms):
+        if j < len(got) and abs(got[j] - want) <= 0.1 * want:
+            j += 1
+        else:
+            missing.append({"pause": i, "of": len(spin_ms),
+                            "label_after": labels[i], "spin_ms": want})
+    kernels = {e.get("args", {}).get("correlation") for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"}
+    orphans = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "cuda_runtime"
+               and "LaunchKernel" in e.get("name", "")
+               and e.get("args", {}).get("correlation") not in kernels]
+    return {"spins_traced": len(got), "pauses": len(spin_ms),
+            "missing": missing, "unaligned_spins": len(got) - j,
+            "launches_without_kernel": len(orphans),
+            "first_orphan_ts_us": [float(e["ts"]) for e in orphans[:4]]}
+
+
 def attribute(device_events: list, labels: list) -> dict:
     """Device time per stage from a profiler trace of a paused batch:
     the card runs one stream in order, so its kernels, copies and fills
@@ -149,8 +191,8 @@ def attribute(device_events: list, labels: list) -> dict:
     evs = sorted(device_events, key=lambda e: float(e["ts"]))
     spins = [k for k, e in enumerate(evs) if SPIN_KERNEL in e["name"]]
     if len(spins) != len(labels):
-        raise RuntimeError(f"{len(spins)} spin kernels in the trace for "
-                           f"{len(labels)} pauses")
+        raise SpinLost(f"{len(spins)} spin kernels in the trace for "
+                       f"{len(labels)} pauses")
     out: dict = {}
     for k, start in enumerate(spins):
         end = spins[k + 1] if k + 1 < len(spins) else len(evs)
@@ -168,7 +210,7 @@ def attribute(device_events: list, labels: list) -> dict:
 PROLOGUE = "prologue: bank pick and curves"
 TRIP = "refine trip: contributions and glue"
 EPILOGUE = "epilogue: contributions and glue"
-SEGTABLES = "silence tables: other"
+SEGTABLES = "silence tables (kernel; XLA form: all but the scans)"
 METHODS = {
     "prologue": PROLOGUE,
     "_head_pitch": {PROLOGUE: "prologue: head pitch (K2)"},
@@ -251,7 +293,8 @@ def eager_stages(cs, torch, np, core, batch, reps: int):
     which also hold the eager core's launch gaps between kernels, with
     every spin checked to outlast the host's enqueue of what follows it
     (and lengthened until it does). Returns (stage -> {"ms", "ops",
-    "event_ms"}, the pause's cycles)."""
+    "event_ms"}, the pause's cycles, spin_loss() of each profiled run
+    whose trace lost a spin kernel, before the one used)."""
     def stamp():
         e = torch.cuda.Event(enable_timing=True)
         e.record()
@@ -273,6 +316,7 @@ def eager_stages(cs, torch, np, core, batch, reps: int):
     per = {}
     cycles = PAUSE_CYCLES
     profiled = None
+    lost = []
     while profiled is None:
         timing = len(next(iter(per.values()), [])) < reps
         if timing:
@@ -288,12 +332,20 @@ def eager_stages(cs, torch, np, core, batch, reps: int):
         if timing:
             for k, v in marks.totals(elapsed).items():
                 per.setdefault(k, []).append(v)
-        else:
-            profiled = attribute(cs.device_events(events),
-                                 marks.paused_labels())
+            continue
+        labels = marks.paused_labels()
+        try:
+            profiled = attribute(cs.device_events(events), labels)
+        except SpinLost:
+            spin_ms = [elapsed(marks.marks[i][0], marks.marks[i + 1][0])
+                       for i, _, _ in marks.pauses]
+            lost.append(spin_loss(events, spin_ms, labels))
+            print("spin_loss " + json.dumps(lost[-1]), flush=True)
+            if len(lost) > SPIN_RETRIES:
+                raise
     stages = {k: dict(v, event_ms=float(np.median(per[k])))
               for k, v in profiled.items()}
-    return stages, cycles
+    return stages, cycles, lost
 
 
 def behind_spin(torch, enqueue):
@@ -377,7 +429,7 @@ def profile_speed(cs, torch, np, bs, speed: float, reps: int) -> dict:
         return compiled.batch_core(core, dims, ar, trips, bs.wire)
 
     batch()                                                 # warm-up
-    stages, cycles = eager_stages(cs, torch, np, core, batch, reps)
+    stages, cycles, lost = eager_stages(cs, torch, np, core, batch, reps)
     prof = profiler_totals(cs, torch, batch)
     g_ms = graph_ms(torch, np, entry, merged, trips, reps)
 
@@ -400,7 +452,7 @@ def profile_speed(cs, torch, np, bs, speed: float, reps: int) -> dict:
         res, trips=trips, wire=bs.wire, stages=stages,
         refine_trip_ms_each=trip / max(trips, 1),
         stage_sum_ms=stage_sum, event_sum_ms=event_sum,
-        pause_cycles=cycles, profiler=prof,
+        pause_cycles=cycles, spin_losses=lost, profiler=prof,
         stage_sum_over_profiler=stage_sum / prof["device_ms"],
         event_sum_over_profiler=event_sum / prof["device_ms"],
         graph_ms=g_ms, graph_over_eager=g_ms / prof["device_ms"],
