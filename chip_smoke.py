@@ -31,7 +31,16 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      the silence tables (silence_tables) on speech-like region rows at
      the default setting and the three of phase 9 that overflow the
      32-slot table, each at NBLK and NBLK_WIDE slots (no library call
-     computes them);
+     computes them); the contour and interrogative-fall zones
+     (contour_zones) and region_post on the region rows of B sentences
+     and of one (B = 1), each region slot of a kind: a segment of
+     exactly 256 samples (the reference's 1/0 frame: NaN, compared NaN
+     equal to NaN), a split question whose rise and fall abut, a row of
+     exactly CONTW, factors 0.005 apart, no DSP, a fade longer than its
+     row reaching back before it, an inactive question-final region,
+     and the rest random (no library call computes either); these two
+     update their rows in place, so each compared call takes a copy and
+     the timed calls run on a row buffer of their own;
   5. the serving path: BatchSynthesizer.stream over 3 batches of the
      16 bench texts (batch i: the texts rotated by i, 7 times over, and
      16 rows of text i, so that every batch differs and a batch
@@ -166,6 +175,7 @@ SYNC_SPEED = 0.5
 # Kernel shapes of the serving bucket above at batch 128.
 B, U, UBUF, CFMAX = 128, 32, 7168, 1024
 R, WREG, MARGIN, CONTW, SMAX = 16, 32768, 3072, 28672, 114688
+FADE2W = 128        # the region tail-fade window of the default config
 NSHIFT = 16
 NBLK = 32
 # The widest silence table the configurations of phase 9 run again at
@@ -348,6 +358,8 @@ def kernel_inputs(np):
     ins["compact_adversarial"] = adversarial_tables(
         np, np.random.default_rng(6))
     ins["silence"] = silence_rows(np, np.random.default_rng(5))
+    ins["regions"] = region_arrays(np, np.random.default_rng(8), B)
+    ins["regions B=1"] = region_arrays(np, np.random.default_rng(9), 1)
 
     # assemble: cumsum offsets of active regions, margin overlap.
     active = rng.random((B, R)) < 0.8
@@ -476,6 +488,95 @@ def silence_rows(np, rng):
     return bufs, lens, remove
 
 
+def region_arrays(np, rng, nb: int) -> dict:
+    """The region arrays contour_zones and region_post read, for nb
+    sentences of the serving bucket: lengths after silence removal
+    (500-9000 samples, a sentence's sum at most SMAX, the lowering's
+    bound), pitch factors 0.9-1.1, energy factors 0.7-1.4, ~80% DSP,
+    ~25% question-final and ~90% active regions, ~50% energy ramps,
+    fades of 0-FADE2W samples and each region's offset in its sentence
+    (pauses of 0-3000 samples). Region slots 0-6 hold the adversarial
+    kinds of phase 4 in every sentence."""
+    shape = (nb, R)
+    cnt = rng.integers(500, 9000, shape).astype(np.int64)
+    c = rng.uniform(0.9, 1.1, shape + (5,)).astype(np.float32)
+    c[..., 3:] = rng.uniform(0.7, 1.4, shape + (2,))
+    qfinal = rng.random(shape) < 0.25
+    do_dsp = rng.random(shape) < 0.8
+    active = rng.random(shape) < 0.9
+    energy = rng.random(shape) < 0.5
+    fade_after = rng.integers(0, FADE2W + 1, shape).astype(np.int32)
+    # 0: a segment of exactly 256 samples with a pitch change (NaN).
+    cnt[:, 0], qfinal[:, 0], do_dsp[:, 0] = 256, False, True
+    c[:, 0, :2] = (0.95, 1.05)
+    # 1, 2: split questions, rise 1800 and fall 1200 abutting, and a row
+    # of exactly CONTW.
+    cnt[:, 1], cnt[:, 2] = 3000, CONTW
+    for k in (1, 2):
+        qfinal[:, k] = do_dsp[:, k] = active[:, k] = True
+    # 3: factors 0.005 apart (inactive); 4: no DSP on a question-final
+    # region; 5: a fade longer than its row, reaching back before it; 6:
+    # an inactive question-final region (its rise alone).
+    c[:, 3, 1] = c[:, 3, 0] + np.float32(0.005)
+    qfinal[:, 3], do_dsp[:, 3] = False, True
+    do_dsp[:, 4], qfinal[:, 4] = False, True
+    cnt[:, 5], fade_after[:, 5] = 80, FADE2W
+    active[:, 6], qfinal[:, 6], do_dsp[:, 6] = False, True, True
+    for b in range(nb):
+        while cnt[b].sum() > SMAX:
+            k = 7 + int(np.argmax(cnt[b, 7:]))
+            cnt[b, k] //= 2
+    seg = cnt + rng.integers(0, 3000, shape)
+    return {"cnt": cnt, "contour": c, "qfinal": qfinal, "do_dsp": do_dsp,
+            "active": active, "energy": energy, "fade_after": fade_after,
+            "offsets": (np.cumsum(seg, 1) - seg).astype(np.int64)}
+
+
+def contour_bound(np, reg: dict) -> dict:
+    """The contour zones' least work: every sample of a segment that runs
+    a frame (n >= 256 and factors 0.01 or more apart) read once and
+    written once, the region arrays read once; ~30 operations a sample
+    (two frame samples of ~10: the resample index, the lerp, the Hann
+    product; the OLA sum, its int16 wrap, the division and q16)."""
+    cnt, c = reg["cnt"], reg["contour"]
+    rise = (cnt.astype(np.float32) * np.float32(0.6)).astype(np.int64)
+    split = (rise > 100) & (cnt - rise > 100)
+    split1 = reg["qfinal"] & split
+    n = 0
+    for count, fs, fe in (
+            (np.where(reg["do_dsp"], np.where(split1, rise, cnt), 0),
+             c[..., 0], np.where(split1, c[..., 2], c[..., 1])),
+            (np.where(reg["qfinal"] & reg["do_dsp"] & reg["active"] & split,
+                      cnt - rise, 0), c[..., 2], c[..., 1])):
+        run = (count >= 256) & (np.abs(fs - fe) >= np.float32(0.01))
+        n += int(np.where(run, count, 0).sum())
+    rows = cnt.size
+    nbytes = 8 * n + rows * (8 + 20 + 3) + 4 * 256
+    return dict(bound(nbytes, 30.0 * n), live_samples=n)
+
+
+def region_post_bound(np, reg: dict) -> dict:
+    """region_post's least work: every ramped or faded sample read once
+    and written once, the region arrays read once; 7 operations a
+    ramped sample (the division, the factor, the product, q16) and 11 a
+    faded one (t, the LUT index and lerp, the product, trunc)."""
+    cnt = reg["cnt"]
+    ramp_end = np.where(reg["do_dsp"] & reg["energy"] & (cnt >= 100),
+                        np.minimum(cnt, CONTW), 0)
+    fade = np.minimum(reg["fade_after"].astype(np.int64),
+                      cnt + reg["offsets"])
+    on = fade > 0
+    lo = np.maximum(cnt - fade, np.maximum(cnt - FADE2W, 0))
+    end = np.where(on, np.minimum(cnt, CONTW), 0)
+    fade_n = np.where(on, np.clip(end - lo, 0, None), 0)
+    overlap = np.where(on, np.clip(np.minimum(ramp_end, end)
+                                   - np.maximum(lo, 0), 0, None), 0)
+    touched = int((ramp_end + fade_n - np.minimum(overlap, fade_n)).sum())
+    nbytes = 8 * touched + cnt.size * (8 + 8 + 20 + 2 + 4) + 4 * 1024
+    return dict(bound(nbytes, 7.0 * ramp_end.sum() + 11.0 * fade_n.sum()),
+                live_samples=touched)
+
+
 def source_index(np, starts, dst, seg_len):
     """[B, R*WREG] int64: the input position whose sample the compaction
     of these tables puts at each position (K3's library yardstick, one
@@ -583,6 +684,9 @@ def kernel_tensors(torch, ins, dev) -> dict:
     t["wide_tables"] = on(*ins["compact_wide"])
     t["adv_tables"] = on(*ins["compact_adversarial"])
     t["sil_bufs"], t["region_len"], t["remove"] = on(*ins["silence"])
+    for tag in ("regions", "regions B=1"):
+        t[tag] = {k: torch.as_tensor(v, device=dev)
+                  for k, v in ins[tag].items()}
     _, t["offsets"], t["live"] = on(*ins["assemble"])
     t["adv_offsets"], t["adv_live"] = on(*ins["assemble_adversarial"])
     for tag, (speed, hop, out_size, rows) in WSOLA_CASES.items():
@@ -614,7 +718,9 @@ def silence_bound(np, lens, remove, nblk: int) -> dict:
 
 def kernel_cases(hopper, t) -> dict:
     """Phase 4's calls on the tensors `t`: name -> (kernel call, plain
-    call, kernel reps, plain reps)."""
+    call, kernel reps, plain reps[, timed call]). A kernel that updates
+    its input in place is compared on copies and timed on a buffer of
+    its own (the timed call)."""
     from ctts_tpu_torch.ops import wsola as tw
 
     TOT, OUTW = R * WREG, MARGIN + SMAX
@@ -657,6 +763,24 @@ def kernel_cases(hopper, t) -> dict:
                 lambda args=args: silence.silence_tables(*args),
                 lambda args=args: silence.silence_tables_plain(*args),
                 20, 3)
+    rows = t["bufs"].reshape(B, R, WREG)
+    for tag, part in (("", rows), (" B=1", rows[:1])):
+        reg = t[f"regions{tag}"]
+        zc = (reg["cnt"], reg["contour"], reg["qfinal"], reg["do_dsp"],
+              reg["active"], MARGIN, SMAX)
+        zp = (reg["cnt"], reg["offsets"], reg["contour"], reg["do_dsp"],
+              reg["energy"], reg["fade_after"], MARGIN, CONTW, FADE2W)
+        for name, mod, kern, plain, args in (
+                ("contour_zones", hopper.contour, "contour_zones",
+                 "contour_plain", zc),
+                ("region_post", hopper.region_post, "region_post",
+                 "region_post_plain", zp)):
+            k, p = getattr(mod, kern), getattr(mod, plain)
+            cases[name + tag] = (
+                lambda k=k, part=part, args=args: k(part.clone(), *args),
+                lambda p=p, part=part, args=args: p(part.clone(), *args),
+                20, 3,
+                lambda k=k, work=part.clone(), args=args: k(work, *args))
     for tag, offs, live, outw in (
             ("assemble", "offsets", "live", OUTW),
             ("assemble adversarial", "adv_offsets", "adv_live", OUTW),
@@ -682,13 +806,23 @@ def kernel_cases(hopper, t) -> dict:
 
 
 def compare(torch, kern, plain) -> tuple:
-    """(equal bits, max abs error) of a kernel call and its plain one."""
+    """(equal, max abs error) of a kernel call and its plain one: equal
+    values, NaN equal to NaN (a contour segment of 256 samples is NaN in
+    both), and the largest difference where neither is NaN."""
     got, want = kern(), plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize(got[0].device)
-    equal = all(torch.equal(g, w) for g, w in zip(got, want))
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    def same(g, w):
+        if not g.is_floating_point():
+            return torch.equal(g, w)
+        return (torch.equal(g.isnan(), w.isnan())
+                and torch.equal(g.nan_to_num(), w.nan_to_num()))
+
+    equal = all(same(g, w) for g, w in zip(got, want))
+    err = max(float((g - w).nan_to_num().abs().max())
+              for g, w in zip(got, want))
     return equal, err, got
 
 
@@ -785,6 +919,10 @@ def check_kernels(torch, np, hopper) -> dict:
         for nblk in (NBLK, NBLK_WIDE):
             works[silence_case(tag, nblk)] = silence_bound(
                 np, sil_lens, sil_remove, nblk)
+    for tag in ("", " B=1"):
+        reg = ins[f"regions{tag}"]
+        works["contour_zones" + tag] = contour_bound(np, reg)
+        works["region_post" + tag] = region_post_bound(np, reg)
     libraries = {
         "pitch_corr": pitch_conv(torch, seg, ana),
         "pitch_corr L=220": pitch_conv(torch, seg, t["ana220"]),
@@ -817,12 +955,14 @@ def check_kernels(torch, np, hopper) -> dict:
         works[f"wsola_frames {tag}"] = work
 
     results = {}
-    for name, (kern, plain, reps, plain_reps) in kernel_cases(
-            hopper, t).items():
+    for name, case in kernel_cases(hopper, t).items():
+        kern, plain, reps, plain_reps = case[:4]
+        timed = case[4] if len(case) > 4 else kern
         equal, err, got = compare(torch, kern, plain)
         library = libraries.get(name)
         res = {"equal": equal, "max_abs_err": err,
-               "ms": device_ms(kern, reps), "host_ms": time_ms(kern, reps),
+               "ms": device_ms(timed, reps),
+               "host_ms": time_ms(timed, reps),
                "plain_ms": time_ms(plain, plain_reps),
                "shapes": [list(g.shape) for g in got], **works[name],
                "library_ms": None}
@@ -2350,6 +2490,10 @@ LIBRARY_NONE = {
                       "kept-segment tables",
     "compose": "none: units are placed in sequence, each reading the "
                "last one's write",
+    "contour_zones": "none: no single PyTorch call resamples, windows and "
+                     "overlap-adds the pitch-contour frames",
+    "region_post": "none: no single PyTorch call applies the energy ramp "
+                   "and the sine-fade LUT's tail fade",
     "wsola_frames": "none: each frame's search reads the previous "
                     "frame's choice",
 }

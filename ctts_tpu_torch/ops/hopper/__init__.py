@@ -2,8 +2,10 @@
 
 One module per Pallas kernel of ctts_tpu/ops/pallas: pitch, compose,
 compact and assemble on every path, wsola (both WSOLA kernels) on the
-speed != 1.0 path; and silence, the silence-removal tables, a stage the
-JAX package left to XLA. Each holds the wrapper (the CUDA kernel for a CUDA
+speed != 1.0 path; and three stages the JAX package left to XLA on every
+path: silence (the silence-removal tables), contour (the contour and
+interrogative-fall zones) and region_post (the energy ramp and the
+region tail fade). Each holds the wrapper (the CUDA kernel for a CUDA
 tensor, the plain PyTorch version for a CPU tensor), the plain version
 itself or its import, a launch counter that only a kernel launch
 increments, and GLOBALS, the __global__ functions a launch runs. Under
@@ -21,12 +23,15 @@ from ctts_tpu_torch.ops.hopper import (
     assemble,
     compact,
     compose,
+    contour,
     pitch,
+    region_post,
     silence,
     wsola,
 )
 
-MODULES = (pitch, compose, silence, compact, assemble, wsola)
+MODULES = (pitch, compose, silence, compact, contour, region_post,
+           assemble, wsola)
 
 
 def reset_launches() -> None:

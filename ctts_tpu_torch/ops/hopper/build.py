@@ -42,6 +42,9 @@ SIGNATURES = {
     "ctts_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_silence_tables": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ctts_contour_zones": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ctts_region_post": [_P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _P],
     "ctts_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],

@@ -42,6 +42,11 @@ def _lut_lookup(name: str, t: torch.Tensor) -> torch.Tensor:
     return torch.where(lo, lut[0], val)
 
 
+def sine_fade_table(device: torch.device) -> torch.Tensor:
+    """The sine-fade table on `device`, as sine_fade_gain reads it."""
+    return _table("sine_fade", device)
+
+
 def fade_out_gain(t: torch.Tensor) -> torch.Tensor:
     return _lut_lookup("fade_out", t)
 

@@ -41,6 +41,8 @@ from ctts_tpu_torch.ops import device_ops as dops
 from ctts_tpu_torch.ops.exact import sqrt_rn
 from ctts_tpu_torch.ops.hopper.assemble import assemble
 from ctts_tpu_torch.ops.hopper.compact import compact
+from ctts_tpu_torch.ops.hopper.contour import contour_zones
+from ctts_tpu_torch.ops.hopper.region_post import region_post
 from ctts_tpu_torch.ops.hopper.silence import silence_tables
 from ctts_tpu_torch.ops.hopper.compose import compose
 from ctts_tpu_torch.ops.luts import fade_in_gain, fade_out_gain, sine_fade_gain
@@ -650,60 +652,32 @@ class SynthesisCore(nn.Module):
     def _contour(self, dims, ar, bufs, comp_lens):
         """Phrase-intonation pitch contour on each DSP region's content
         (the rise segment of a split question), and the interrogative
-        fall on the question-final regions, in one pass of zones on the
-        device (dops.contour_zones): per region, segment 0 is the
-        contour and segment 1 the fall; a segment of a region that does
-        not carry it gets count 0 and no slots."""
-        B, R = bufs.shape[0], dims.R
-        cnt = comp_lens.long()
-        c = ar["region_contour"]
-        qfinal = ar["region_qfinal"]
-        do_dsp = ar["region_do_dsp"]
-        rise = (cnt.to(F32) * 0.6).to(torch.int64)
-        split = (rise > 100) & (cnt - rise > 100)
-        split1 = qfinal & split
-        fall = qfinal & do_dsp & ar["region_active"]
-        zero = torch.zeros_like(cnt)
-        region = torch.arange(R, device=bufs.device).expand(B, R)
-
-        def pair(a, b):        # [B, R] x 2 -> [B, 2R], region-major
-            return torch.stack([a, b], 2).reshape(B, 2 * R)
-
-        return dops.contour_zones(
-            bufs, dims.MARGIN, pair(region, region), pair(zero, rise),
-            pair(torch.where(do_dsp, torch.where(split1, rise, cnt), 0),
-                 torch.where(fall & split, cnt - rise, 0)),
-            pair(c[..., 0], c[..., 2]),
-            pair(torch.where(split1, c[..., 2], c[..., 1]), c[..., 1]),
-            dops.zone_slots(dims.SMAX, 2 * R))
+        fall on the question-final regions: one ctts_contour_zones
+        launch (ops/hopper/contour.py; on the CPU its plain version, the
+        zones of dops.contour_zones)."""
+        return contour_zones(bufs, comp_lens,
+                             ar["region_contour"].contiguous(),
+                             ar["region_qfinal"].contiguous(),
+                             ar["region_do_dsp"].contiguous(),
+                             ar["region_active"].contiguous(),
+                             dims.MARGIN, dims.SMAX)
 
     # -- region_post (device.py:1567-1593) ----------------------------------
 
     def _region_post(self, dims, ar, bufs, comp_lens, offsets):
         """Energy ramp (ctts.c:2841-2865) and the region tail fade on
-        every region row, masked as the JAX package's vmapped
-        region_post: rows without an energy ramp keep their content, and
-        a row with fade_after 0 writes its window back unchanged. The
-        tail fade is min(F, B_r + length) long, B_r = offsets, as
+        the rows that carry them: one ctts_region_post launch
+        (ops/hopper/region_post.py; on the CPU its plain version, masked
+        over every region row as the JAX package's vmapped region_post).
+        The tail fade is min(F, B_r + length) long, B_r = offsets, as
         apply_fade_out makes it over the whole buffer; its part before
         the region is _fades_before_regions'."""
-        M, W = dims.MARGIN, dims.CONTW
-        rows = bufs.reshape(-1, dims.WREG)
-        lens = comp_lens.reshape(-1)
-        cnt = lens[:, None]
-        c = ar["region_contour"].reshape(-1, 5)
-        es, ee = c[:, 3:4], c[:, 4:5]
-        content = rows[:, M:M + W]
-        ic = torch.arange(W, device=bufs.device)
-        te = ic.to(F32)[None, :] / torch.clamp(cnt - 1, min=1).to(F32)
-        ramped = q16(content * (es + (ee - es) * te))
-        on = (ar["region_do_dsp"] & ar["region_energy"]).reshape(-1, 1)
-        apply = (ic[None, :] < cnt) & (cnt >= 100) & on
-        content.copy_(torch.where(apply, ramped, content))
-        dops.tail_fade_window(content, lens,
-                              ar["region_fade_after"].reshape(-1),
-                              min(dims.FADE2W, W), offsets.reshape(-1))
-        return rows.reshape(bufs.shape)
+        return region_post(bufs, comp_lens, offsets,
+                           ar["region_contour"].contiguous(),
+                           ar["region_do_dsp"].contiguous(),
+                           ar["region_energy"].contiguous(),
+                           ar["region_fade_after"].contiguous(),
+                           dims.MARGIN, dims.CONTW, dims.FADE2W)
 
     # -- assembly (device.py:1596-1635) -------------------------------------
 

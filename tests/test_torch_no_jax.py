@@ -26,6 +26,8 @@ for name in names + ["chip_smoke"]:
 assert "ctts_tpu_torch.bench" in names
 assert "ctts_tpu_torch.runtime.native" in names
 assert "ctts_tpu_torch.ops.hopper.silence" in names
+assert "ctts_tpu_torch.ops.hopper.contour" in names
+assert "ctts_tpu_torch.ops.hopper.region_post" in names
 # runtime/__init__.py re-exports the native binding, as the JAX
 # package's runtime/__init__.py does.
 from ctts_tpu_torch.runtime import NativeEngine, native_available
