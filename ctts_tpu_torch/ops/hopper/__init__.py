@@ -2,13 +2,17 @@
 
 One module per Pallas kernel of ctts_tpu/ops/pallas: pitch, compose,
 compact and assemble on every path, wsola (both WSOLA kernels) on the
-speed != 1.0 path; and three stages the JAX package left to XLA on every
+speed != 1.0 path; and six stages the JAX package left to XLA on every
 path: silence (the silence-removal tables), contour (the contour and
-interrogative-fall zones) and region_post (the energy ramp and the
-region tail fade). Each holds the wrapper (the CUDA kernel for a CUDA
-tensor, the plain PyTorch version for a CPU tensor), the plain version
-itself or its import, a launch counter that only a kernel launch
-increments, and GLOBALS, the __global__ functions a launch runs. Under
+interrogative-fall zones), region_post (the energy ramp and the region
+tail fade), pack_encode (the packed output and its wire encode) and
+units (two kernels: unit_base, the bank pick and crossfade curves, and
+unit_contrib, the per-unit contributions). Each holds the wrapper (the
+CUDA kernel for a CUDA tensor, the plain PyTorch version for a CPU
+tensor), the plain version itself or its import, a launch counter that
+only a kernel launch increments, and GLOBALS, the __global__ functions
+a launch runs; MODULES lists, per kernel, what holds these (units holds
+one such record a kernel). Under
 CUDA graph capture a launch is recorded, not run: recorded_launches
 takes such counts back, and each replay of the graph adds them
 (synth/compiled.py); chip_smoke.py holds the counts to the GLOBALS a
@@ -24,14 +28,17 @@ from ctts_tpu_torch.ops.hopper import (
     compact,
     compose,
     contour,
+    pack_encode,
     pitch,
     region_post,
     silence,
+    units,
     wsola,
 )
 
 MODULES = (pitch, compose, silence, compact, contour, region_post,
-           assemble, wsola)
+           assemble, wsola, pack_encode, units.base_kernel,
+           units.contrib_kernel)
 
 
 def reset_launches() -> None:

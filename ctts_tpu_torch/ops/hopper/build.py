@@ -49,6 +49,11 @@ SIGNATURES = {
     "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],
     "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ctts_pack_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ctts_unit_base": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _P],
+    "ctts_unit_contrib": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _P],
     "ctts_empty": [_P],
     "ctts_current_device": [ctypes.POINTER(_I)],
 }

@@ -47,6 +47,14 @@ def sine_fade_table(device: torch.device) -> torch.Tensor:
     return _table("sine_fade", device)
 
 
+def fade_out_table(device: torch.device) -> torch.Tensor:
+    return _table("fade_out", device)
+
+
+def fade_in_table(device: torch.device) -> torch.Tensor:
+    return _table("fade_in", device)
+
+
 def fade_out_gain(t: torch.Tensor) -> torch.Tensor:
     return _lut_lookup("fade_out", t)
 

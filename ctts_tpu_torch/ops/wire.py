@@ -16,7 +16,10 @@ the tensor's device, not in the TPU's form: the compaction is a rank
 byte rows, where JAX runs a one-hot bf16 matmul over a scan of
 256-row tiles. Only the valid prefix of the word stream,
 `wire_valid_words(classes, n)` words for the first n samples, is
-defined; the rest of the buffer is left unwritten.
+defined; the rest of the buffer is left unwritten. It is the codec of
+the plain version of ops/hopper/pack_encode.py; on a card the serving
+path encodes with that module's kernel, which writes the same words
+straight from the unpacked rows.
 
 The host decodes with one streaming C pass (`ctn_wire_decode` of the
 port's libctts_native.so, through runtime/native.py); `decode_np` is

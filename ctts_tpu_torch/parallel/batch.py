@@ -8,8 +8,9 @@ SynthesisCore as one batch per bucket. Each batch's valid prefixes are
 packed into one flat int16 buffer on the device, so the host copy is
 sum(out_len) samples. With the wire codec (ops/wire.py; on by default on
 a CUDA device, as the JAX package turns it on on every accelerator) the
-packed buffer is encoded on the device and the host copies the valid
-word prefix and decodes it in one C pass on the drain thread; the
+packed samples are encoded on the device (on a card one pack_encode
+launch writes the words straight from the rows) and the host copies the
+valid word prefix and decodes it in one C pass on the drain thread; the
 samples are the same bit for bit.
 
 Every speed is served (WSOLA for speed != 1.0, with OMAX-wide rows).
@@ -21,7 +22,7 @@ devices: what the JAX package's shard_map branch computes
 lcm(8, mesh size); after the length sort and the pad rows, shard d takes
 the slots [d * rows_per, (d + 1) * rows_per) and runs on mesh.devices[d]
 with that device's replica of the voice, its SynthesisCore and its copy
-stream: the core, pack_rows and, with the codec, an encode of its own
+stream: the core, the pack and, with the codec, an encode of its own
 (the codec is block-local). The batch-global value tables
 (shared_plan_values) are computed once over the whole bucket and given
 to every shard unchanged, as JAX replicates them. The trim makes one
@@ -355,8 +356,8 @@ class BatchSynthesizer:
 
     def _enqueue_shard(self, shard: Shard, dims: PlanDims, arrays: dict,
                        shared: dict):
-        """The core over one shard's rows, pack_rows and, with the codec,
-        encode, all on the shard's device: (payload, classes or None,
+        """The core over one shard's rows, the pack and, with the codec,
+        the encode, all on the shard's device: (payload, classes or None,
         out_lens, ovf)."""
         with on_device(shard.device):
             return self._run_core(shard.core, dims, arrays, shared,

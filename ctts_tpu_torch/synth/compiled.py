@@ -12,7 +12,7 @@ for one sentence; `release_compiled` (ctts_tpu/parallel/batch.py:
 Here the program is three CUDA graphs, one per stage of SynthesisCore
 (synth/device.py makes what each stage launches depend on nothing but
 the signature): the prologue, one refine trip, and the epilogue with
-pack_rows, the wire pad and wire.encode. A batch replays the prologue,
+the pack and the wire encode (one pack_encode launch). A batch replays the prologue,
 the trip graph once per trip of its refine depth (read from the host
 arrays before staging; the counterpart of the while_loop of ctts_tpu/
 synth/device.py:1186-1214, whose trip count XLA reads on the device),
@@ -72,8 +72,11 @@ import numpy as np
 import torch
 
 from ctts_tpu_torch.ops import hopper
-from ctts_tpu_torch.ops import wire as wire_codec
 from ctts_tpu_torch.ops.device_ops import NBLK
+from ctts_tpu_torch.ops.hopper.pack_encode import (  # noqa: F401 (re-exported)
+    pack_encode,
+    pack_rows,
+)
 from ctts_tpu_torch.synth.device import (
     Staging,
     SynthesisCore,
@@ -86,32 +89,13 @@ MAX_GRAPHS = 64   # the lru_cache size of _compiled_batch_core
 MAX_SEEN = 4 * MAX_GRAPHS
 
 
-def pack_rows(out: torch.Tensor, out_lens: torch.Tensor) -> torch.Tensor:
-    """Valid prefixes of out [B, OM] packed back to back into one flat
-    buffer (ctts_tpu/parallel/batch.py:75-100): cumsum offsets and one
-    index scatter; lanes past a row's length go to a dropped slot."""
-    B, OM = out.shape
-    lens = out_lens.long()
-    offs = torch.cumsum(lens, 0) - lens
-    iw = torch.arange(OM, device=out.device)
-    tgt = torch.where(iw[None, :] < lens[:, None], offs[:, None] + iw, B * OM)
-    packed = torch.zeros(B * OM + 1, dtype=out.dtype, device=out.device)
-    packed.scatter_(0, tgt.reshape(-1), out.reshape(-1))
-    return packed[:B * OM]
-
-
 def _pack_encode(out, out_lens, ovf, wire: bool):
-    """pack_rows and, with the codec, the pad to whole blocks and encode
-    (the tail of JAX's `run`, ctts_tpu/parallel/batch.py:75-100):
-    (payload, classes or None, out_lens, ovf)."""
-    packed = pack_rows(out, out_lens)
-    if not wire:
-        return packed, None, out_lens, ovf
-    pad = -packed.shape[0] % wire_codec.WIRE_BLOCK
-    if pad:
-        packed = torch.cat([packed, packed.new_zeros(pad)])
-    words, classes = wire_codec.encode(packed)
-    return words, classes, out_lens, ovf
+    """The packed valid prefixes and, with the codec, their wire encode
+    (the tail of JAX's `run`, ctts_tpu/parallel/batch.py:75-100): one
+    pack_encode (ops/hopper/pack_encode.py): (payload, classes or None,
+    out_lens, ovf)."""
+    payload, classes = pack_encode(out, out_lens, wire)
+    return payload, classes, out_lens, ovf
 
 
 def batch_epilogue(core: SynthesisCore, dims: PlanDims, st: dict,

@@ -19,8 +19,10 @@ and none reads back to the host. So synth/compiled.py can capture each
 stage once per signature as a CUDA graph and replay it, the counterpart
 of the JAX package's compiled programs.
 
-Stage order (JAX line numbers): prepare_base and the DC/fade chain of
-make_contrib_fn (761-918); head pitch (1070-1084); the refine loop of
+Stage order (JAX line numbers): prepare_base and the set-up of
+make_contrib_fn (761-886, one unit_base launch), with the DC/fade chain
+of its contrib_fn (887-918, one unit_contrib launch) before each
+compose; head pitch (1070-1084); the refine loop of
 compose + boundary_heads (920-1030, 1212-1223); the final compose
 (1223); in-region tail fades (1250-1268); silence tables (1276-1300);
 compaction (1302-1320); contour, the interrogative fall and
@@ -45,7 +47,8 @@ from ctts_tpu_torch.ops.hopper.contour import contour_zones
 from ctts_tpu_torch.ops.hopper.region_post import region_post
 from ctts_tpu_torch.ops.hopper.silence import silence_tables
 from ctts_tpu_torch.ops.hopper.compose import compose
-from ctts_tpu_torch.ops.luts import fade_in_gain, fade_out_gain, sine_fade_gain
+from ctts_tpu_torch.ops.hopper.units import unit_base, unit_contrib, widths
+from ctts_tpu_torch.ops.luts import sine_fade_gain
 from ctts_tpu_torch.ops.quant import q16, trunc16
 from ctts_tpu_torch.ops.wsola import time_stretch
 from ctts_tpu_torch.plan.compiler import SynthesisPlan
@@ -252,23 +255,28 @@ class SynthesisCore(nn.Module):
     @torch.no_grad()
     def prologue(self, dims: PlanDims, ar: dict) -> dict:
         """Bank pick, crossfade curves and head pitch: the state the
-        refine trips update in place (its heads and trip counter)."""
+        refine trips update in place (its heads and trip counter). One
+        unit_base (ops/hopper/units.py) makes the heads, the head
+        columns hcols (the original heads and the pitch span), the int
+        sum of each unit's body (tail_total) and the curves fo, fi; no
+        [B, U, UBUF] base lives past it."""
         if not dims.compose_refine:
             raise NotImplementedError(
                 "only the refine compose (compose_refine=True) is ported")
         ar = dict(ar)
         uid = ar["unit_id"].long()
-        ar["_active"] = uid >= 0
-        ar["_uid"] = torch.clamp(uid, min=0)
-        ar["_n"] = torch.where(ar["_active"], self.lengths[ar["_uid"]],
+        active = uid >= 0
+        ar["_n"] = torch.where(active, self.lengths[torch.clamp(uid, min=0)],
                                0).long()
-
-        base, fo, fi = self._prepare_base(dims, ar)
-        ar["_next_pitch"] = self._head_pitch(dims, ar, base)
-        return {"ar": ar, "base": base, "fo": fo,
-                "contrib_fn": self._make_contrib_fn(dims, ar, base, fi),
-                "heads": base[:, :, :dims.CFMAX].clone(),
-                "it": torch.zeros((), dtype=torch.long, device=base.device)}
+        _, HW = widths(self.ubuf, dims.CFMAX, dops.PITCH_SPAN)
+        heads, hcols, tail_total, fo, fi = unit_base(
+            self.bank, self.gains, self.lengths, ar["unit_id"],
+            ar["unit_cf_in"], ar["cf_values"], dims.CFMAX, HW,
+            dims.remove_dc)
+        ar["_next_pitch"] = self._head_pitch(dims, ar, hcols)
+        return {"ar": ar, "hcols": hcols, "fo": fo, "fi": fi,
+                "tail_total": tail_total, "heads": heads,
+                "it": torch.zeros((), dtype=torch.long, device=heads.device)}
 
     @torch.no_grad()
     def refine_trip(self, dims: PlanDims, st: dict) -> None:
@@ -276,9 +284,9 @@ class SynthesisCore(nn.Module):
         from the exported analysis windows; a row whose own trip count
         is reached keeps its heads (the vmapped while_loop's select)."""
         ar, heads = st["ar"], st["heads"]
-        _, seg, tail = self._compose(dims, ar, st["contrib_fn"](heads),
+        _, seg, tail = self._compose(dims, ar, self._contrib(dims, st),
                                      st["fo"], True)
-        new = self._boundary_heads(dims, ar, st["base"], seg, tail)
+        new = self._boundary_heads(dims, ar, st["hcols"], seg, tail)
         live = st["it"] < ar["refine_trips"].long()
         heads.copy_(torch.where(live[:, None, None], new, heads))
         st["it"].add_(1)
@@ -296,7 +304,7 @@ class SynthesisCore(nn.Module):
         then not the reference's, and the caller runs it again at
         plan_arrays.seg_width)."""
         ar = st["ar"]
-        bufs, _, _ = self._compose(dims, ar, st["contrib_fn"](st["heads"]),
+        bufs, _, _ = self._compose(dims, ar, self._contrib(dims, st),
                                    st["fo"], False)
         if fades:
             tables = self._reaching_fades(dims, ar, bufs, fades, nblk)
@@ -319,32 +327,6 @@ class SynthesisCore(nn.Module):
                                         dims.synth_hop)
         return out.to(torch.int16), out_len.to(torch.int32), ovf
 
-    # -- bank pick and crossfade curves (device.py:761-812) ---------------
-
-    def _prepare_base(self, dims, ar):
-        """base[b, k] = q16(bank[uid] * gain[uid]) [B, U, UBUF] and the
-        trip-invariant crossfade curves fo, fi [B, U, CFMAX], evaluated
-        once per distinct crossfade length of the batch (cf_values) and
-        picked per unit. A bucket whose CFMAX is wider than the bank (a
-        crossfade longer than the longest unit: it is cut to the unit's
-        length) gets base zero-padded to CFMAX columns."""
-        uid = ar["_uid"]
-        base = q16(self.bank[uid] * self.gains[uid][..., None])
-        if dims.CFMAX > self.ubuf:
-            base = torch.nn.functional.pad(base, (0, dims.CFMAX - self.ubuf))
-        it = torch.arange(dims.CFMAX, device=base.device).to(F32)
-        cfv = ar["cf_values"].long()
-        tmixv = it[None, :] * (1.0 / torch.clamp(cfv, min=1).to(F32))[:, None]
-        pick = self._value_index(torch.clamp(ar["unit_cf_in"].long(), min=1),
-                                 cfv)
-        return base, fade_out_gain(tmixv)[pick], fade_in_gain(tmixv)[pick]
-
-    @staticmethod
-    def _value_index(v: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-        """Index of each v in the deduped value table (exactly one hit;
-        the table's 0 padding never matches)."""
-        return (v[..., None] == values).to(torch.int32).argmax(-1)
-
     # -- head pitch (device.py:1054-1084) ----------------------------------
 
     def _shift_rows(self, ar):
@@ -363,13 +345,13 @@ class SynthesisCore(nn.Module):
 
         return ss, live, pick
 
-    def _head_pitch(self, dims, ar, base):
+    def _head_pitch(self, dims, ar, hcols):
         """Pitch of each candidate unit's head, scattered to [B, U]
         (non-candidates read 0; their smoothing gate is off)."""
         ss, live, pick = self._shift_rows(ar)
         B, NS = ss.shape
         cand = dops.estimate_pitch_batch(
-            pick(base[:, :, :dops.PITCH_SPAN]).reshape(B * NS, -1),
+            pick(hcols[:, :, :dops.PITCH_SPAN]).reshape(B * NS, -1),
             pick(ar["unit_analysis"]).reshape(-1)).reshape(B, NS)
         return self._scatter_slots(dims, ss, live, cand)
 
@@ -386,74 +368,18 @@ class SynthesisCore(nn.Module):
         out.scatter_(1, idx, vals)
         return out[:, :dims.U]
 
-    # -- contributions (make_contrib_fn, device.py:841-918) ----------------
+    # -- contributions (contrib_fn, device.py:887-918) ---------------------
 
-    def _make_contrib_fn(self, dims, ar, base, fi):
-        """Per-unit contributions [B, U, UBUF] from the current heads:
-        everything past the first CFMAX columns is trip-invariant except
-        the scalar DC shift, so only the head chain is recomputed. With
-        remove_dc off (a static branch) no DC is taken out; a fade-in
-        longer than CFMAX also fades the body columns it covers."""
-        CFMAX, UBUF = dims.CFMAX, base.shape[-1]
-        dev = base.device
-        n = ar["_n"][..., None]
-        active = ar["_active"][..., None]
-        cf_in = ar["unit_cf_in"].long()[..., None]
-        fade_in = ar["unit_fade_in"][..., None]
-        iu = torch.arange(UBUF, device=dev)
-        ih = torch.arange(CFMAX, device=dev)
-        body = (iu >= CFMAX) & (iu < n)
-        if dims.remove_dc:
-            tail_total = torch.where(body, base, 0.0).to(torch.int32).sum(-1)
-
-        # apply_fade_in fades min(fade_in_samples, n) samples of a unit.
-        FW = min(-(-dims.fade_in_samples // 128) * 128, UBUF)
-        ifw = torch.arange(FW, device=dev)
-        fade = torch.clamp(n, max=dims.fade_in_samples)          # [B, U, 1]
-        fv = ar["fade_values"].long()
-        tfv = ifw.to(F32)[None, :] * (
-            1.0 / torch.clamp(fv, min=1).to(F32))[:, None]
-        fade_gain = sine_fade_gain(tfv)[
-            self._value_index(torch.clamp(fade[..., 0], min=1), fv)]
-        in_fade = (ifw < fade) & (fade > 0)
-        live_h = ih < n
-        keep_h = live_h & active
-        mix_h = (ih < cf_in) & ~fade_in
-        body_live = body & active
-        HF = min(FW, CFMAX)
-        if FW > CFMAX:
-            fade_body = in_fade[..., CFMAX:] & fade_in
-
-        def contrib_fn(heads):
-            if dims.remove_dc:
-                head_total = torch.where(live_h, heads, 0.0).to(
-                    torch.int32).sum(-1)
-                total = head_total + tail_total
-                dc = torch.sign(total) * torch.div(
-                    torch.abs(total), torch.clamp(n[..., 0], min=1),
-                    rounding_mode="floor")
-                dcf = dc.to(F32)[..., None]
-                xh = torch.where(live_h, torch.clamp(heads - dcf, -32768.0,
-                                                     32767.0), heads)
-                out = torch.where(body_live, torch.clamp(
-                    base - dcf, -32768.0, 32767.0), 0.0)
-            else:
-                xh = heads
-                out = torch.where(body_live, base, 0.0)
-            hf = xh[..., :HF]
-            hf = torch.where(in_fade[..., :HF],
-                             trunc16(hf * fade_gain[..., :HF]), hf)
-            xh = torch.where(fade_in, torch.cat([hf, xh[..., HF:]], -1), xh)
-            xh = torch.where(mix_h, xh * fi, xh)
-            xh = torch.where(keep_h, xh, 0.0)
-            out[..., :CFMAX] = xh
-            if FW > CFMAX:
-                bf = out[..., CFMAX:FW]
-                out[..., CFMAX:FW] = torch.where(
-                    fade_body, trunc16(bf * fade_gain[..., CFMAX:]), bf)
-            return out
-
-        return contrib_fn
+    def _contrib(self, dims, st):
+        """Per-unit contributions [B, U, W] from the current heads: one
+        unit_contrib (ops/hopper/units.py) over the state that
+        unit_base made."""
+        ar = st["ar"]
+        return unit_contrib(st["heads"], self.bank, self.gains, self.lengths,
+                            ar["unit_id"], ar["unit_cf_in"],
+                            ar["unit_fade_in"], st["tail_total"], st["fi"],
+                            ar["fade_values"], dims.fade_in_samples,
+                            dims.remove_dc)
 
     # -- placement (compose kernel, device.py:1086-1113) -------------------
 
@@ -470,7 +396,7 @@ class SynthesisCore(nn.Module):
 
     # -- boundary DSP (boundary_heads, device.py:920-1030) -----------------
 
-    def _boundary_heads(self, dims, ar, base, seg, tail):
+    def _boundary_heads(self, dims, ar, hcols, seg, tail):
         """smooth_pitch_boundary + match_boundary_energy on the unit
         heads, from the exported pre-merge windows."""
         CFMAX = dims.CFMAX
@@ -488,14 +414,14 @@ class SynthesisCore(nn.Module):
                              1.0 - (1.0 - ratio) * 0.5)
         factor = target / torch.where(ratio != 0, ratio, 1.0)
         shifted = dops.pitch_shift_blend(
-            pick(base[:, :, :CFMAX]).reshape(B * NS, CFMAX),
+            pick(hcols[:, :, :CFMAX]).reshape(B * NS, CFMAX),
             sr_c.reshape(-1), factor.reshape(-1)).reshape(B, NS, CFMAX)
         use = live & voiced & jump & (sr_c > 0)
         shifted_u = self._scatter_slots(dims, ss, use, shifted)
         use_u = self._scatter_slots(dims, ss, use, use)
 
-        it = torch.arange(CFMAX, device=base.device)
-        head = base[:, :, :CFMAX]
+        it = torch.arange(CFMAX, device=hcols.device)
+        head = hcols[:, :, :CFMAX]
         sr = ar["unit_shift_region"].long()[..., None]
         head = torch.where((it < sr) & use_u[..., None], shifted_u, head)
 

@@ -242,8 +242,9 @@ def test_stage_marks_cover_the_batch(voice_db):
     ar = layout.upload(merged, CPU)
     trips = device.refine_depth(merged)
     want = compiled.batch_core(core, dims, ar, trips, True)
-    originals = (device.compact, device.time_stretch, compiled.pack_rows,
-                 wire.encode, torch.cumsum)
+    originals = (device.compact, device.time_stretch, device.unit_base,
+                 compiled.pack_encode, compiled.pack_rows, wire.encode,
+                 torch.cumsum)
     def batch():
         return compiled.batch_core(core, dims, ar, trips, True)
 
@@ -254,17 +255,24 @@ def test_stage_marks_cover_the_batch(voice_db):
     assert torch.equal(ovf, want[3])
     valid = wire.wire_valid_words(classes.numpy(), int(lens.sum()))
     assert valid > 0 and torch.equal(words[:valid], want[0][:valid])
-    assert (device.compact, device.time_stretch, compiled.pack_rows,
-            wire.encode, torch.cumsum) == originals
+    assert (device.compact, device.time_stretch, device.unit_base,
+            compiled.pack_encode, compiled.pack_rows, wire.encode,
+            torch.cumsum) == originals
     assert not set(tool.METHODS) & set(vars(core))
     totals = marks.totals(lambda a, b: (b - a) * 1e3)
+    # On the CPU pack_encode's plain version calls wire.encode (marked
+    # inside it) and its own pack_rows (not compiled.pack_rows, which a
+    # checkout from before the kernel calls: unmarked here).
     assert set(totals) == {
-        "other", "prologue: bank pick and curves",
+        "other", "prologue: bank pick and curves", "prologue: unit_base",
         "prologue: head pitch (K2)", tool.TRIP, "refine trip: compose (K1)",
-        "refine trip: boundary_heads (K2)", tool.EPILOGUE,
+        "refine trip: boundary_heads (K2)",
+        "refine trip: contributions (unit_contrib)", tool.EPILOGUE,
+        "epilogue: contributions (unit_contrib)",
         "final compose (K1)", "tail fades", tool.SEGTABLES, tool.SCANS,
         "compaction (K3)", "contour and fall zones", "region_post",
-        "assembly (K4)", "WSOLA (K5, tables, finish)", "pack", "wire encode"}
+        "assembly (K4)", "WSOLA (K5, tables, finish)", tool.PACK_ENCODE,
+        "wire encode"}
     span = (marks.marks[-1][0] - marks.marks[0][0]) * 1e3
     assert sum(totals.values()) == pytest.approx(span)
     labels = [label for _, label in marks.marks]

@@ -28,6 +28,8 @@ assert "ctts_tpu_torch.runtime.native" in names
 assert "ctts_tpu_torch.ops.hopper.silence" in names
 assert "ctts_tpu_torch.ops.hopper.contour" in names
 assert "ctts_tpu_torch.ops.hopper.region_post" in names
+assert "ctts_tpu_torch.ops.hopper.pack_encode" in names
+assert "ctts_tpu_torch.ops.hopper.units" in names
 # runtime/__init__.py re-exports the native binding, as the JAX
 # package's runtime/__init__.py does.
 from ctts_tpu_torch.runtime import NativeEngine, native_available

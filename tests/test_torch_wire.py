@@ -130,8 +130,10 @@ def test_wire_serving_matches_plain(pair):
 def test_wire_serving_pads_packed_buffer(pair, monkeypatch):
     """A packed buffer whose length is not a multiple of the block is
     padded before encoding; the samples stay equal. The serving path
-    packs inside the compiled batch core (synth/compiled.py)."""
-    from ctts_tpu_torch.synth import compiled as batch
+    packs inside the compiled batch core (synth/compiled.py), on the
+    CPU through pack_encode's plain version (ops/hopper/pack_encode.py),
+    which calls pack_rows."""
+    from ctts_tpu_torch.ops.hopper import pack_encode as batch
 
     plain, wired, want = pair
     lengths = []

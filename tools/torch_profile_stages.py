@@ -26,15 +26,20 @@ event ms, the CUDA events' medians over --reps batches, which also hold
 the eager core's gaps between kernels. The batch is chip_smoke.py's
 serving bucket (batch_texts(0), 144 rows at 1.0) at speed 1.0 and 1.5,
 served as a card serves it (the wire codec on). Stages, in order:
-  prologue (bank pick and crossfade curves; head pitch, K2), each refine
-  trip (compose K1; boundary_heads, K2; contributions and glue), the
-  epilogue's contributions and glue, the final compose (K1), tail
+  prologue (bank pick and crossfade curves: on the card one unit_base
+  launch and its glue, a checkout from before that kernel its XLA-form
+  ops; head pitch, K2), each refine trip (compose K1; boundary_heads,
+  K2; the contributions, one unit_contrib launch, and glue; before that
+  kernel the contributions are in the glue), the epilogue's
+  contributions and glue, the final compose (K1), tail
   fades, the silence tables (on the card one ctts_silence_tables launch
   and the fill of its overflow counts; a checkout from before that
   kernel runs the XLA-form ops, its torch.cumsum scans on a row of their
   own), compaction (K3), the contour and interrogative-fall zones,
   region_post, assembly (K4), WSOLA (K5 with its energy table and
-  finish; at 1.5), pack, wire encode, and "other" (outside every stage).
+  finish; at 1.5), the pack and wire encode (one pack_encode launch; a
+  checkout from before it: pack, then wire encode, each in XLA form),
+  and "other" (outside every stage).
 Checks, each printed, the exit code 1 where one fails:
   - the stages' device ms sum to within 5% of torch.profiler's device
     total (kernels, copies and fills) for the same batch run unmarked;
@@ -218,6 +223,8 @@ METHODS = {
     "_boundary_heads": {TRIP: "refine trip: boundary_heads (K2)"},
     "_compose": {TRIP: "refine trip: compose (K1)",
                  EPILOGUE: "final compose (K1)"},
+    "_contrib": {TRIP: "refine trip: contributions (unit_contrib)",
+                 EPILOGUE: "epilogue: contributions (unit_contrib)"},
     "epilogue": EPILOGUE,
     "_tail_fades": "tail fades",
     "_seg_tables": SEGTABLES,
@@ -226,8 +233,11 @@ METHODS = {
     "_layout": "assembly (K4)",
     "_assemble": "assembly (K4)",
 }
+PACK_ENCODE = "pack and wire encode (pack_encode)"
 FUNCTIONS = [("synth.device", "compact", "compaction (K3)"),
              ("synth.device", "time_stretch", "WSOLA (K5, tables, finish)"),
+             ("synth.device", "unit_base", {PROLOGUE: "prologue: unit_base"}),
+             ("synth.compiled", "pack_encode", PACK_ENCODE),
              ("synth.compiled", "pack_rows", "pack"),
              ("ops.wire", "encode", "wire encode"),
              ("torch", "cumsum", {SEGTABLES: SCANS})]
@@ -239,8 +249,8 @@ def stage_marks(core, marks: StageMarks):
     functions it and synth/compiled.py call, torch.cumsum inside the
     silence tables) so that each opens and closes its stage on `marks`;
     everything is restored on exit. The computation is unchanged. A
-    method the core lacks (a checkout from before it) is not marked: its
-    ops stay in the stage that calls them."""
+    method or function the checkout lacks (one from before it) is not
+    marked: its ops stay in the stage that calls them."""
     import importlib
 
     def staged(fn, label):
@@ -259,6 +269,8 @@ def stage_marks(core, marks: StageMarks):
     mods = [(importlib.import_module(
         m if m == "torch" else f"ctts_tpu_torch.{m}"), name, label)
         for m, name, label in FUNCTIONS]
+    mods = [(mod, name, label) for mod, name, label in mods
+            if hasattr(mod, name)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in mods]
     methods = [name for name in METHODS if hasattr(core, name)]
     for name in methods:
