@@ -19,6 +19,7 @@ engine's graphs.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,6 +31,7 @@ from ctts_tpu_torch.db.reader import VoiceDatabase
 from ctts_tpu_torch.parallel.mesh import first_device
 from ctts_tpu_torch.plan.compiler import SynthesisPlan, compile_plan
 from ctts_tpu_torch.text.rules import NormalizationRules
+from ctts_tpu_torch.utils import timing
 
 EXECUTORS = ("torch", "oracle")
 
@@ -66,6 +68,8 @@ class CTTSEngine:
         self._batcher = None
         self.units_found = 0
         self.units_missing = 0
+        # Request ids of the `sentence` spans (utils/timing.py).
+        self._calls = itertools.count()
 
     @classmethod
     def from_files(cls, database_file: str, config_file: str = "config.yaml",
@@ -83,13 +87,20 @@ class CTTSEngine:
 
     def compile(self, text: str, speed: float = 1.0) -> SynthesisPlan:
         speed = min(max(speed, MIN_SPEED), MAX_SPEED)
-        plan = compile_plan(self.db, text, self.config, self.rules, speed)
+        with timing.span("sentence.compile"):
+            plan = compile_plan(self.db, text, self.config, self.rules,
+                                speed)
         self.units_found = plan.units_found
         self.units_missing = plan.units_missing
         return plan
 
     def synthesize(self, text: str, speed: float = 1.0) -> np.ndarray:
-        """Text → int16 samples at 22050 Hz."""
+        """Text → int16 samples at 22050 Hz, recorded as the span
+        `sentence` of the engine's next call number."""
+        with timing.span("sentence", next(self._calls)):
+            return self._synthesize(text, speed)
+
+    def _synthesize(self, text: str, speed: float) -> np.ndarray:
         plan = self.compile(text, speed)
         if self.executor == "torch":
             from ctts_tpu_torch.synth.device import (

@@ -56,6 +56,7 @@ around an XLA:CPU crash and has no counterpart.
 
 from __future__ import annotations
 
+import itertools
 import os
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -88,6 +89,7 @@ from ctts_tpu_torch.synth.plan_arrays import (
     walk_plan,
 )
 from ctts_tpu_torch.text.rules import NormalizationRules
+from ctts_tpu_torch.utils import timing
 
 
 def _next_batch_size(n: int, multiple: int) -> int:
@@ -177,6 +179,8 @@ class BatchSynthesizer:
                     dev, voice.core(),
                     torch.cuda.Stream(dev) if dev.type == "cuda" else None)
         self.shards = [per_device[dev] for dev in devices]
+        # Request ids of the spans (utils/timing.py): one a batch.
+        self._requests = itertools.count()
         self._nl = None
         if native_plans:
             from ctts_tpu_torch.plan.native_lower import NativeLowerer
@@ -198,8 +202,14 @@ class BatchSynthesizer:
         same bucket (plan/split.py) and are concatenated back, where the
         configuration's fades stay inside the rows
         (plan_arrays.split_keeps_fades)."""
-        prepared, spans = self._lower_batch(texts, speed, split)
-        return self._finish(self._trim(self._enqueue(prepared)), spans)
+        req = next(self._requests)
+        with timing.span("batch.lower", req):
+            prepared, spans = self._lower_batch(texts, speed, split)
+        with timing.span("batch.enqueue", req):
+            handles = self._enqueue(prepared)
+        with timing.span("batch.trim", req):
+            trimmed = self._trim(handles)
+        return self._drain_batch(req, trimmed, spans)
 
     def execute(self, plans):
         """Synthesize compiled plans (compile_plans), one row each and
@@ -215,37 +225,52 @@ class BatchSynthesizer:
           2. trim batch N: sync its out_lens and start the copy of its
              packed prefix on a side stream;
           3. enqueue batch N+1;
-          4. hand batch N's drain to a one-worker thread.
-        Yields one list of int16 arrays per input batch, in order."""
-        prev = None      # enqueued-but-untrimmed batch N
-        pending = None   # drain future of batch N-1
-        pool = ThreadPoolExecutor(max_workers=1)
+          4. hand batch N's drain to a one-worker thread (`ctts-drain`).
+        Yields one list of int16 arrays per input batch, in order. Each
+        step is a span of its batch's request (utils/timing.py), and the
+        wait for a drain is `stream.wait_drain`."""
+        prev = None      # (enqueued-but-untrimmed batch N, spans, req)
+        pending = None   # (drain future of batch N-1, req)
+        pool = ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix="ctts-drain")
         try:
             for texts in text_batches:
-                prepped, spans = self._lower_batch(texts, speed, split)
+                req = next(self._requests)
+                with timing.span("batch.lower", req):
+                    prepped, spans = self._lower_batch(texts, speed, split)
                 if prev is not None:
-                    trimmed, pspans = self._trim(prev[0]), prev[1]
-                handles = self._enqueue(prepped)
+                    with timing.span("batch.trim", prev[2]):
+                        trimmed = self._trim(prev[0])
+                with timing.span("batch.enqueue", req):
+                    handles = self._enqueue(prepped)
                 if prev is not None:
-                    fut = pool.submit(self._finish, trimmed, pspans)
+                    fut = pool.submit(self._drain_batch, prev[2], trimmed,
+                                      prev[1])
                     if pending is not None:
-                        yield pending.result()
-                    pending = fut
-                prev = (handles, spans)
+                        yield _wait_drain(*pending)
+                    pending = (fut, prev[2])
+                prev = (handles, spans, req)
             if prev is not None:
-                trimmed, pspans = self._trim(prev[0]), prev[1]
+                with timing.span("batch.trim", prev[2]):
+                    trimmed = self._trim(prev[0])
                 if pending is not None:
-                    yield pending.result()
-                yield self._finish(trimmed, pspans)
+                    yield _wait_drain(*pending)
+                yield self._drain_batch(prev[2], trimmed, prev[1])
             elif pending is not None:
-                yield pending.result()
+                yield _wait_drain(*pending)
         finally:
             pool.shutdown(wait=True)
 
+    def _drain_batch(self, req, trimmed, spans):
+        """_finish as the span `batch.drain` of request `req`."""
+        with timing.span("batch.drain", req):
+            return self._finish(trimmed, spans)
+
     def _finish(self, trimmed, spans):
         outs = self._drain(trimmed)
-        return [outs[s] if e == s + 1 else np.concatenate(outs[s:e])
-                for s, e in spans]
+        with timing.span("drain.rows"):
+            return [outs[s] if e == s + 1 else np.concatenate(outs[s:e])
+                    for s, e in spans]
 
     # -- host lowering -------------------------------------------------------
 
@@ -348,6 +373,9 @@ class BatchSynthesizer:
         order."""
         n, stacked, shared = prep
         rows = stacked["speed"].shape[0] // len(self.shards)
+        timing.count("buckets")
+        timing.count("rows.real", n)
+        timing.count("rows.pad", rows * len(self.shards) - n)
         return Enqueued(n, rows, [
             self._enqueue_shard(shard, dims, {
                 k: v[d * rows:(d + 1) * rows] for k, v in stacked.items()},
@@ -387,7 +415,8 @@ class BatchSynthesizer:
         for d, (shard, (payload, classes, out_lens, ovf)) in enumerate(
                 zip(self.shards, handles)):
             small = [out_lens, ovf] + ([] if classes is None else [classes])
-            small = torch.cat(small).cpu().numpy()
+            with timing.span("trim.sync"):
+                small = torch.cat(small).cpu().numpy()
             n_d = min(n - d * rows, rows)
             if n_d <= 0:
                 continue
@@ -400,6 +429,7 @@ class BatchSynthesizer:
                 count = wire_codec.wire_valid_words(classes, total)
             else:
                 count = total
+            timing.count("bytes.d2h", count * payload.element_size())
             trimmed.append((*self._copy_prefix(shard, payload[:count]),
                             classes, ends))
         return trimmed, self._widen(handle, over)
@@ -450,16 +480,27 @@ class BatchSynthesizer:
         for idxs, (shards, wide) in per_bucket:
             slot = 0
             for host, done, classes, ends in shards:
-                if done is not None:
-                    done.synchronize()
-                    host = host.numpy()
+                with timing.span("drain.wait_copy"):
+                    if done is not None:
+                        done.synchronize()
+                        host = host.numpy()
                 if classes is not None:
-                    host = wire_codec.decode_host(host, classes,
-                                                  int(ends[-1]))
-                start = 0
-                for end in ends:
-                    results[idxs[slot]] = (wide[slot] if slot in wide else
-                                           host[start:int(end)].copy())
-                    start = int(end)
-                    slot += 1
+                    with timing.span("drain.decode"):
+                        host = wire_codec.decode_host(host, classes,
+                                                      int(ends[-1]))
+                with timing.span("drain.rows"):
+                    start = 0
+                    for end in ends:
+                        results[idxs[slot]] = (
+                            wide[slot] if slot in wide
+                            else host[start:int(end)].copy())
+                        start = int(end)
+                        slot += 1
         return results
+
+
+def _wait_drain(fut, req):
+    """The drained batch of future `fut`, waited for as the span
+    `stream.wait_drain` of its request."""
+    with timing.span("stream.wait_drain", req):
+        return fut.result()

@@ -84,6 +84,7 @@ from ctts_tpu_torch.synth.device import (
     refine_depth,
 )
 from ctts_tpu_torch.synth.plan_arrays import PlanDims, fade_passes, seg_width
+from ctts_tpu_torch.utils import timing
 
 MAX_GRAPHS = 64   # the lru_cache size of _compiled_batch_core
 MAX_SEEN = 4 * MAX_GRAPHS
@@ -274,20 +275,23 @@ def run_batch(core: SynthesisCore, dims: PlanDims, arrays: dict,
     at the signature's first batch, captured at its second) or eagerly
     on the CPU. ovf [B] counts each row's regions with more than nblk
     kept segments: such a row's audio is not the reference's, and the
-    caller runs it again (run_wide) before it returns it."""
+    caller runs it again (run_wide) before it returns it. Recorded as
+    the span `core.run`."""
     dev = core.bank.device
-    if dev.type != "cuda":
-        return run_eager(core, dims, arrays, shared, wire, nblk)
-    sig, layout, merged = signature(core, dims, arrays, shared, wire, nblk)
-    trips = refine_depth(merged)
-    with torch.cuda.device(dev):
-        # A capture synchronizes the device first, so no replay of a
-        # graph it evicts is still running.
-        entry = cached(sig, lambda: CapturedCore(core, sig, layout))
-        if entry is None:
-            return batch_core(core, dims, layout.upload(merged, dev), trips,
-                              wire, sig.fades, nblk)
-        return entry.replay(merged, trips)
+    with timing.span("core.run"):
+        if dev.type != "cuda":
+            return run_eager(core, dims, arrays, shared, wire, nblk)
+        sig, layout, merged = signature(core, dims, arrays, shared, wire,
+                                        nblk)
+        trips = refine_depth(merged)
+        with torch.cuda.device(dev):
+            # A capture synchronizes the device first, so no replay of a
+            # graph it evicts is still running.
+            entry = cached(sig, lambda: CapturedCore(core, sig, layout))
+            if entry is None:
+                return batch_core(core, dims, layout.upload(merged, dev),
+                                  trips, wire, sig.fades, nblk)
+            return entry.replay(merged, trips)
 
 
 # Rows run again by run_wide, per silence-table width.

@@ -60,6 +60,7 @@ from ctts_tpu_torch.synth.plan_arrays import (
     shared_plan_values,
     walk_plan,
 )
+from ctts_tpu_torch.utils import timing
 
 F32 = torch.float32
 
@@ -660,13 +661,16 @@ def execute_plan_torch(plan: SynthesisPlan, db: VoiceDatabase,
 
     if voice is None:
         voice = DeviceVoice(db, plan.target_rms)
-    lowered = lower_sentence(plan, db, voice)
+    with timing.span("sentence.lower"):
+        lowered = lower_sentence(plan, db, voice)
     packed, _, out_lens, ovf = compiled.run_batch(voice.core(), *lowered,
                                                   False)
     # The packed buffer holds the row's valid prefix: its length and the
     # overflow count come to the host in one copy.
-    n, n_ovf = torch.cat([out_lens, ovf]).cpu().tolist()
+    with timing.span("sentence.sync"):
+        n, n_ovf = torch.cat([out_lens, ovf]).cpu().tolist()
     if n_ovf:
         return compiled.run_wide(compiled.run_batch, voice.core(), *lowered,
                                  1)[0]
-    return packed[:n].cpu().numpy()
+    with timing.span("sentence.sync"):
+        return packed[:n].cpu().numpy()

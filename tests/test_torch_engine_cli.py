@@ -14,7 +14,9 @@ runtime binding and the stage timer.
     to ctts_tpu's on tests/test_native.py's CASES;
 (d) CTTSEngine(executor="torch", device=cpu): synthesize and
     synthesize_batch within 2 LSB of the oracle;
-(e) StageTimer's report and device_trace's Chrome trace.
+(e) StageTimer's report, and a profiler's Chrome trace holding its
+    stages as ctts:: spans (utils/timing.py; its device_trace went: a
+    profiler records the port's spans).
 """
 
 import io
@@ -230,7 +232,10 @@ def test_engine_oracle_setters_and_rejects(voice_db):
 
 
 def test_stage_timer_and_device_trace(tmp_path):
-    from ctts_tpu_torch.utils.timing import StageTimer, device_trace
+    from torch.profiler import ProfilerActivity, profile
+
+    from ctts_tpu_torch.utils import timing
+    from ctts_tpu_torch.utils.timing import StageTimer
 
     timer = StageTimer()
     with timer.stage("one"):
@@ -243,8 +248,11 @@ def test_stage_timer_and_device_trace(tmp_path):
         pass
     assert off.stages == []
 
-    with device_trace(None):
-        pass
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(64).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timer.stage("two"):
+            torch.ones(64).sum()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    assert os.path.getsize(tmp_path / "trace.json") > 0
+    assert "ctts::cli.stage" in (tmp_path / "trace.json").read_text()
+    assert not timing.recording()
+    timing.reset()
