@@ -75,7 +75,7 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      3-batch stream under torch.profiler, served and eager; for the
      codec, wire bytes over valid int16 bytes, pack_encode's device time
      on that stream's last rows with the codec, the one copy of lengths,
-     overflow counts and classes to the host, and decode_host's host
+     overflow counts and classes to the host, and decode_rows's host
      time per batch. Then one synchronous synthesize of batch 0 at
      speed 0.5 through its graph, equal to the eager one and held to
      the oracle, and the card's memory over a served and an eager
@@ -1521,16 +1521,16 @@ def record_pitch_lengths(torch, hopper, run) -> dict:
 
 
 class WireProbe:
-    """Wraps synth/compiled.py's pack_encode and ops/wire.py's
-    decode_host while installed: keeps the last rows and lengths packed
+    """Wraps synth/compiled.py's pack_encode and ops/wire_rows.py's
+    decode_rows while installed: keeps the last rows and lengths packed
     and encoded with the codec and their classes, and the word count,
-    sample count and host seconds of every decode_host call (the drain
-    thread makes them)."""
+    sample count and host seconds of every decode_rows call (the drain
+    thread makes one a batch)."""
 
-    def __init__(self, compiled, wire):
-        self.compiled, self.wire = compiled, wire
+    def __init__(self, compiled, wire_rows):
+        self.compiled, self.wire_rows = compiled, wire_rows
         self.pack_encode = compiled.pack_encode
-        self.decode_host = wire.decode_host
+        self.decode_rows = wire_rows.decode_rows
         self.last = None
         self.decodes = []
 
@@ -1540,21 +1540,21 @@ class WireProbe:
             self.last = (out, out_lens, classes)
         return payload, classes
 
-    def _decode_host(self, words, classes, nsamples):
+    def _decode_rows(self, shards, which=None):
         t0 = time.perf_counter()
-        out = self.decode_host(words, classes, nsamples)
-        self.decodes.append((int(words.shape[0]), int(nsamples),
+        n = self.decode_rows(shards, which)
+        self.decodes.append((sum(int(s[0].shape[0]) for s in shards), n,
                              time.perf_counter() - t0))
-        return out
+        return n
 
     def __enter__(self):
         self.compiled.pack_encode = self._pack_encode
-        self.wire.decode_host = self._decode_host
+        self.wire_rows.decode_rows = self._decode_rows
         return self
 
     def __exit__(self, *exc):
         self.compiled.pack_encode = self.pack_encode
-        self.wire.decode_host = self.decode_host
+        self.wire_rows.decode_rows = self.decode_rows
 
 
 def sync_ms(torch, np, classes, B: int, reps: int = 21) -> float:
@@ -1613,14 +1613,15 @@ def serve(torch, np, hopper, ways: dict, speed: float,
     shard, drain ms, steady rate and peak memory, the graphs' captures,
     and the device idle share of a profiled 3-batch stream, served and
     eager."""
-    from ctts_tpu_torch.ops import wire
+    from ctts_tpu_torch.ops import wire_rows
     from ctts_tpu_torch.synth import compiled
 
     served = ways["wire"]
     rerun0 = rows_rerun()
-    # Host seconds of each batch's drain (_finish: wait for the copy,
-    # decode with the codec, slice rows), on the drain thread but the
-    # last batch's, which runs on the main thread.
+    # Host seconds of each batch's drain (_finish: wait for the copies,
+    # write the rows into their texts' arrays, decoding with the codec),
+    # on the drain thread but the last batch's, which runs on the main
+    # thread.
     drains = {k: [] for k in ways}
     enqueue = {k: [] for k in ways}
 
@@ -1639,7 +1640,7 @@ def serve(torch, np, hopper, ways: dict, speed: float,
         bs._finish = timed_finish(bs, key)
         timed_method(bs, "_enqueue_shard", enqueue[key])
         timed_method(bs, "_lower_batch", lower[key])
-    with WireProbe(compiled, wire) as probe:
+    with WireProbe(compiled, wire_rows) as probe:
         # First-use set-up, untimed: the graphs of every signature of
         # the stream are captured here. At speed 1.0 the eager way also
         # records the analysis length of every row the pitch kernel
@@ -1739,7 +1740,7 @@ def serve(torch, np, hopper, ways: dict, speed: float,
                                             len(batch_texts(0))),
         "sync_int32_values": 2 * len(batch_texts(0))
         + int(classes.shape[0]),
-        "decode_host_ms": [d[2] * 1e3 for d in decodes]})
+        "decode_rows_ms": [d[2] * 1e3 for d in decodes]})
     return res, batches["eager"]
 
 

@@ -21,9 +21,11 @@ the plain version of ops/hopper/pack_encode.py; on a card the serving
 path encodes with that module's kernel, which writes the same words
 straight from the unpacked rows.
 
-The host decodes with one streaming C pass (`ctn_wire_decode` of the
-port's libctts_native.so, through runtime/native.py); `decode_np` is
-the plain NumPy decoder the tests hold it to.
+The serving drain decodes a batch's shards in one native pass straight
+into the rows' arrays (ops/wire_rows.py). `decode_host`, one streaming C
+pass (`ctn_wire_decode` of the port's libctts_native.so, through
+runtime/native.py), and `decode_np`, the plain NumPy decoder, are what
+the tests hold that pass to.
 """
 
 from __future__ import annotations

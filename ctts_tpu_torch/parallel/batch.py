@@ -10,8 +10,9 @@ sum(out_len) samples. With the wire codec (ops/wire.py; on by default on
 a CUDA device, as the JAX package turns it on on every accelerator) the
 packed samples are encoded on the device (on a card one pack_encode
 launch writes the words straight from the rows) and the host copies the
-valid word prefix and decodes it in one C pass on the drain thread; the
-samples are the same bit for bit.
+valid word prefix; on the drain thread one native pass a batch
+(ops/wire_rows.py) decodes every shard's words straight into the rows'
+own arrays; the samples are the same bit for bit.
 
 Every speed is served (WSOLA for speed != 1.0, with OMAX-wide rows).
 
@@ -69,6 +70,7 @@ import torch
 from ctts_tpu_torch.config import CTTSConfig
 from ctts_tpu_torch.db.reader import VoiceDatabase
 from ctts_tpu_torch.ops import wire as wire_codec
+from ctts_tpu_torch.ops import wire_rows
 from ctts_tpu_torch.parallel.mesh import first_device
 from ctts_tpu_torch.plan.compiler import compile_plan
 from ctts_tpu_torch.plan.split import split_plan
@@ -267,10 +269,8 @@ class BatchSynthesizer:
             return self._finish(trimmed, spans)
 
     def _finish(self, trimmed, spans):
-        outs = self._drain(trimmed)
-        with timing.span("drain.rows"):
-            return [outs[s] if e == s + 1 else np.concatenate(outs[s:e])
-                    for s, e in spans]
+        """The batch's outputs, one a text of `spans` (see _drain)."""
+        return self._drain(trimmed, spans)
 
     # -- host lowering -------------------------------------------------------
 
@@ -471,32 +471,76 @@ class BatchSynthesizer:
         prefix.record_stream(shard.copy_stream)
         return host, done
 
-    def _drain(self, trimmed):
-        """Walk each bucket's shards in order, mapping slots back to row
-        ids: wait for the shard's copy, decode it with the codec, and
-        slice its rows; a row that ran again takes that run's output."""
+    def _drain(self, trimmed, spans=None):
+        """The outputs of `spans`, each text's [start, end) range of row
+        ids (None: one a row), in order. Walk each bucket's shards in
+        order, mapping slots back to row ids, and wait for each shard's
+        copy; then give every text an array of its own, each of its rows
+        the range of that array it fills, and write the rows there: with
+        the codec, one native pass decodes every wired shard of the batch
+        straight into them (ops/wire_rows.py); without it, each row is
+        copied out of its shard's buffer; a row that ran again takes that
+        run's output."""
         n_rows, per_bucket = trimmed
-        results: list = [None] * n_rows
+        lens = [0] * (n_rows + 1)   # row id + 1 -> samples
+        wired, copied = [], []      # (host, classes, ends, ids); (id, src)
         for idxs, (shards, wide) in per_bucket:
             slot = 0
             for host, done, classes, ends in shards:
                 with timing.span("drain.wait_copy"):
                     if done is not None:
-                        done.synchronize()
+                        # A copy that has ended is not waited for: the
+                        # wait lets go of the GIL, and taking it back
+                        # from a busy calling thread takes up to a
+                        # switch interval.
+                        if not done.query():
+                            done.synchronize()
                         host = host.numpy()
+                ids, start = [], 0
+                for end in ends.tolist():
+                    row = idxs[slot]
+                    if slot in wide:
+                        copied.append((row, wide[slot]))
+                        lens[row + 1] = wide[slot].shape[0]
+                        row = n_rows            # address 0: not decoded
+                    else:
+                        if classes is None:
+                            copied.append((row, host[start:end]))
+                        lens[row + 1] = end - start
+                    ids.append(row)
+                    start = end
+                    slot += 1
                 if classes is not None:
-                    with timing.span("drain.decode"):
-                        host = wire_codec.decode_host(host, classes,
-                                                      int(ends[-1]))
-                with timing.span("drain.rows"):
-                    start = 0
-                    for end in ends:
-                        results[idxs[slot]] = (
-                            wide[slot] if slot in wide
-                            else host[start:int(end)].copy())
-                        start = int(end)
-                        slot += 1
-        return results
+                    wired.append((host, classes, ends, ids))
+        if spans is None:
+            spans = [(i, i + 1) for i in range(n_rows)]
+        offs = np.cumsum(lens)
+        first = offs[[s for s, _ in spans]]
+        count = [e - s for s, e in spans]
+        with timing.span("drain.decode" if wired else "drain.rows"):
+            outs = [np.empty(n, np.int16) for n in
+                    (offs[[e for _, e in spans]] - first).tolist()]
+            if wired:
+                # Each row's address: its text's array, at the row's
+                # offset in the text.
+                addr = np.zeros(n_rows + 1, np.int64)
+                addr[:n_rows] = np.repeat(
+                    [o.__array_interface__["data"][0] for o in outs],
+                    count) + 2 * (offs[:n_rows] - np.repeat(first, count))
+                n = wire_rows.decode_rows([
+                    (host, classes, ends, addr[ids])
+                    for host, classes, ends, ids in wired])
+        if wired:
+            timing.count("decode.samples", n)
+            timing.count("decode.vector", 0 if wire_rows.path() == "scalar"
+                         else n)
+        with timing.span("drain.rows"):
+            text = np.repeat(np.arange(len(spans)), count)
+            for row, src in copied:
+                t = int(text[row])
+                at = int(offs[row] - first[t])
+                outs[t][at:at + src.shape[0]] = src
+        return outs
 
 
 def _wait_drain(fut, req):

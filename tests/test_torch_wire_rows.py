@@ -1,0 +1,232 @@
+"""The serving drain's native wire decode (ctts_tpu_torch/ops/wire_rows.py,
+ops/wire_rows.cpp) on the CPU.
+
+(a) both exported paths, AVX2 and scalar, write what decode_np gives,
+    sliced at the row ends, into the rows' own arrays, bit for bit: word
+    streams of random classes 1-5 (random residual nibbles, so both
+    running sums wrap), encoded int16 extremes that wrap through
+    +-32768, rows ending mid-block and on block edges, empty rows, one
+    row, 128 rows, a last partial block, 0 samples, two shards in one
+    call, skipped rows;
+(b) a class of 0 or 7 and too few words or classes raise the ValueError
+    that decode_host raises;
+(c) BatchSynthesizer with the codec equals it without, through
+    synthesize and stream, on one shard and on a two-shard mesh: equal
+    rows, each owning its data; the drain's spans and the decode
+    counters are recorded.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ctts_tpu_torch.ops import wire as twire
+from ctts_tpu_torch.ops import wire_rows
+from ctts_tpu_torch.utils import timing
+
+CPU = torch.device("cpu")
+
+
+def _addresses(rows):
+    return np.array([0 if r is None else r.ctypes.data for r in rows],
+                    np.uint64)
+K = twire.WIRE_BLOCK
+TEXTS = ["como vai", "bom dia. tudo bem.", "que legal!", "a rosa", "oi"]
+
+
+def _words(classes, rng):
+    """A word stream in the codec's layout for `classes`: random
+    residuals of each block's class width, as its nibble planes."""
+    words = []
+    for c in classes:
+        z = rng.integers(0, 16 ** int(c), K, dtype=np.int64)
+        for p in range(int(c)):
+            nib = ((z >> (4 * p)) & 0xF).reshape(-1, 8).astype(np.uint32)
+            words.append((nib << (4 * np.arange(8, dtype=np.uint32))
+                          ).sum(axis=1, dtype=np.uint32))
+    if not words:
+        return np.zeros(0, np.int32)
+    return np.concatenate(words).view(np.int32)
+
+
+def _random(nblk, seed):
+    rng = np.random.default_rng(seed)
+    classes = rng.integers(1, 6, nblk).astype(np.int32)
+    return _words(classes, rng), classes
+
+
+def _extremes():
+    """int16 extremes through the encoder: 5-plane blocks whose samples
+    wrap through +-32768, beside 1-plane ones."""
+    rng = np.random.default_rng(11)
+    x = rng.choice(np.array([-32768, 32767, -1, 0, 1], np.int16), 6 * K)
+    x[2 * K:3 * K] = 0
+    w, c = twire.encode(torch.from_numpy(x))
+    return w.numpy(), c.numpy()
+
+
+def _ends(total, n, rng, edges=False):
+    """n row ends in [0, total], the last at total; on block edges where
+    `edges`."""
+    if edges:
+        cuts = rng.integers(0, total // K + 1, n - 1) * K
+    else:
+        cuts = rng.integers(0, total + 1, n - 1)
+    return np.append(np.sort(cuts), total).astype(np.int64)
+
+
+def _case(name):
+    """[(words, classes, ends)] of one call."""
+    rng = np.random.default_rng(CASES.index(name))
+    if name == "random_classes":
+        w, c = _random(40, 1)
+        return [(w, c, _ends(40 * K - 100, 17, rng))]
+    if name == "block_edges":
+        w, c = _random(24, 2)
+        ends = np.array([0, K, K, 5 * K, 6 * K, 6 * K, 20 * K, 24 * K],
+                        np.int64)
+        return [(w, c, ends)]
+    if name == "mid_and_edge":
+        w, c = _random(24, 3)
+        ends = np.sort(np.concatenate([_ends(24 * K, 9, rng, edges=True),
+                                       _ends(24 * K, 9, rng)]))
+        return [(w, c, ends)]
+    if name == "one_row":
+        w, c = _random(9, 4)
+        return [(w, c, np.array([9 * K - 7], np.int64))]
+    if name == "rows_128":
+        w, c = _random(70, 5)
+        return [(w, c, _ends(70 * K - 300, 128, rng))]
+    if name == "partial_last":
+        w, c = _random(6, 6)
+        return [(w, c, np.array([K + 3, 5 * K + 1], np.int64))]
+    if name == "wrap_int16":
+        w, c = _extremes()
+        return [(w, c, _ends(6 * K, 11, rng))]
+    if name == "zero_samples":
+        return [(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                 np.zeros(3, np.int64))]
+    if name == "two_shards":
+        w1, c1 = _random(13, 7)
+        w2, c2 = _extremes()
+        return [(w1, c1, _ends(13 * K - 40, 30, rng)),
+                (w2, c2, _ends(5 * K + 9, 30, rng))]
+    raise KeyError(name)
+
+
+CASES = ["random_classes", "block_edges", "mid_and_edge", "one_row",
+         "rows_128", "partial_last", "wrap_int16", "zero_samples",
+         "two_shards"]
+
+
+@pytest.mark.parametrize("which", wire_rows.PATHS)
+@pytest.mark.parametrize("name", CASES + ["skipped_rows"])
+def test_paths_equal_decode_np_sliced(name, which):
+    """Every row's array holds decode_np's samples of its range; a row
+    given no array (every third one, in the skipped_rows case) is left
+    alone and not counted."""
+    skipping = name == "skipped_rows"
+    shards, checks, want_total = [], [], 0
+    for w, c, ends in _case("rows_128" if skipping else name):
+        want = twire.decode_np(w, c, int(ends[-1]))
+        starts = np.concatenate([[0], ends[:-1]]).astype(np.int64)
+        rows = [np.full(e - s, 7, np.int16) for s, e in zip(starts, ends)]
+        skip = set(range(0, len(rows), 3)) if skipping else set()
+        shards.append((w, c, ends, _addresses(
+            [None if i in skip else r for i, r in enumerate(rows)])))
+        checks.append((want, starts, ends, rows, skip))
+        want_total += sum(len(r) for i, r in enumerate(rows)
+                          if i not in skip)
+    assert wire_rows.decode_rows(shards, which) == want_total
+    for want, starts, ends, rows, skip in checks:
+        for i, (s, e, r) in enumerate(zip(starts, ends, rows)):
+            if i in skip:
+                assert (r == 7).all(), i
+            else:
+                assert np.array_equal(r, want[s:e]), (i, s, e)
+
+
+def test_path_is_chosen_at_load():
+    assert wire_rows.path() in wire_rows.PATHS
+    w, c = _random(8, 9)
+    ends = np.array([8 * K - 5], np.int64)
+    a, b = np.empty(8 * K - 5, np.int16), np.empty(8 * K - 5, np.int16)
+    wire_rows.decode_rows([(w, c, ends, _addresses([a]))])
+    wire_rows.decode_rows([(w, c, ends, _addresses([b]))], wire_rows.path())
+    assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("which", wire_rows.PATHS)
+@pytest.mark.parametrize("bad,match", [
+    ("class0", "outside 1..5"), ("class7", "outside 1..5"),
+    ("few_words", "words"), ("few_classes", "words")])
+def test_bad_input_raises_as_decode_host(bad, match, which):
+    wire = np.zeros(twire.WIRE_CHUNK_W * 7, np.int32)
+    n, classes = K, np.array([1], np.int32)
+    if bad == "class0":
+        n, classes = K + 1, np.array([0, 1], np.int32)
+    elif bad == "class7":
+        classes = np.array([7], np.int32)
+    elif bad == "few_words":
+        wire = wire[:10]
+    else:
+        n = 2 * K
+    with pytest.raises(ValueError, match=match):
+        twire.decode_host(wire, classes, n)
+    with pytest.raises(ValueError, match=match):
+        wire_rows.decode_rows(
+            [(wire, classes, np.array([n], np.int64),
+              _addresses([np.empty(n, np.int16)]))], which)
+
+
+@pytest.fixture(scope="module")
+def db(voice_db):
+    from ctts_tpu_torch.db.reader import VoiceDatabase
+
+    d = VoiceDatabase(voice_db)
+    yield d
+    d.close()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("shards", [1, 2], ids=["one_shard", "mesh2"])
+def test_serving_with_codec_equals_without(db, shards):
+    from ctts_tpu_torch.config import config_defaults
+    from ctts_tpu_torch.parallel import BatchSynthesizer, make_mesh
+
+    mesh = make_mesh([CPU] * 2) if shards == 2 else None
+    kw = dict(mesh=mesh) if mesh is not None else dict(device=CPU)
+    plain = BatchSynthesizer(db, config_defaults(), wire=False, **kw)
+    wired = BatchSynthesizer(db, config_defaults(), wire=True, **kw)
+    assert len(wired.shards) == shards
+    want = plain.synthesize(TEXTS)
+    timing.disable()
+    timing.reset()
+    timing.enable()
+    try:
+        got = wired.synthesize(TEXTS)
+        streamed = list(wired.stream(iter([TEXTS[:2], TEXTS[2:]])))
+    finally:
+        timing.disable()
+    snap = timing.snapshot()
+    timing.reset()
+    for t, w, g, s in zip(TEXTS, want, got, streamed[0] + streamed[1]):
+        assert g.dtype == s.dtype == np.int16
+        assert np.array_equal(w, g) and np.array_equal(w, s), t
+        assert g.flags.owndata and s.flags.owndata, t
+    names = {s.name for s in snap["spans"]}
+    assert {"drain.decode", "drain.rows", "drain.wait_copy"} <= names
+    marks = {}
+    for m in snap["marks"]:
+        marks[m.name] = marks.get(m.name, 0) + m.n
+    samples = 2 * sum(len(w) for w in want)
+    assert marks["decode.samples"] == samples
+    vector = samples if wire_rows.path() != "scalar" else 0
+    assert marks["decode.vector"] == vector
