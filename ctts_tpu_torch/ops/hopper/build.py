@@ -126,6 +126,28 @@ def build() -> Path:
     return LIB_PATH
 
 
+CXXFLAGS = ["-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared"]
+
+
+def gxx_build(src: Path, out: Path) -> Path:
+    """Compile the host C++ source `src` with g++ into the shared library
+    `out` when it is missing or older than the source (written under a
+    name of this process's, then renamed, so that concurrent builds do
+    not clash); a failed build raises with g++'s output."""
+    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.so")
+    cmd = ["g++", *CXXFLAGS, "-o", str(tmp), str(src)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed (rc {r.returncode}): "
+                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib

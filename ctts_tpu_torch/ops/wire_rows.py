@@ -19,19 +19,16 @@ its text's array.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
-from ctts_tpu_torch.ops.hopper.build import BUILD_DIR
+from ctts_tpu_torch.ops.hopper.build import BUILD_DIR, gxx_build
 from ctts_tpu_torch.ops.wire import WIRE_BLOCK, wire_valid_words
 
 SRC = Path(__file__).resolve().with_name("wire_rows.cpp")
 LIB_PATH = BUILD_DIR / "libctts_wire_rows.so"
-CXXFLAGS = ["-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared"]
 PATHS = ("avx2", "scalar")
 
 _P = ctypes.c_void_p
@@ -45,29 +42,11 @@ _lock = threading.Lock()
 _lib = None
 
 
-def build() -> Path:
-    """Compile wire_rows.cpp into LIB_PATH when it is missing or older
-    than the source (written under a name of this process's, then
-    renamed, so that concurrent builds do not clash)."""
-    if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= SRC.stat().st_mtime:
-        return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libctts_wire_rows.{os.getpid()}.so"
-    cmd = ["g++", *CXXFLAGS, "-o", str(tmp), str(SRC)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed (rc {r.returncode}): "
-                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(gxx_build(SRC, LIB_PATH)))
             for name in ("ctw_decode_rows", "ctw_decode_rows_avx2",
                          "ctw_decode_rows_scalar"):
                 fn = getattr(lib, name)

@@ -294,27 +294,28 @@ class BatchSynthesizer:
 
     def _prepare_native(self, texts, speed: float, split: bool):
         """Native twin of compile + split + _prepare
-        (ctts_tpu/parallel/batch.py:326): rows are lowered and filled
-        straight into the stacked arrays by libctts.so."""
+        (ctts_tpu/parallel/batch.py:326): rows are lowered by libctts.so,
+        and each bucket's are filled, ordered and padded straight into
+        its stacked arrays by one native call (NativeLowerer.fill_bucket,
+        the span `lower.fill`)."""
         nl = self._nl
         spans, dims_list, trips = nl.lower(texts, speed, split)
         buckets = defaultdict(list)
         for i, d in enumerate(dims_list):
             buckets[bucket_dims(d, self.dims_floor)].append(i)
-        thr = np.float32(self.config.silence_threshold)
+        trips = np.array(trips, np.int32)
         per_bucket = []
-        for bd, idxs in buckets.items():
-            n = len(idxs)
-            stacked = nl.alloc_stacked(
-                bd, _next_batch_size(n, len(self.shards)))
-            for slot, ri in enumerate(idxs):
-                nl.fill_into(ri, bd, stacked, slot)
-            stacked["threshold"][:] = thr
-            stacked["speed"][:] = np.float32(speed)
-            stacked["refine_trips"][:n] = [trips[ri] for ri in idxs]
-            idxs = self._order_and_pad(stacked, n, idxs)
-            shared = shared_plan_values(stacked, self.voice.lengths_np, bd)
-            per_bucket.append((bd, idxs, (n, stacked, shared)))
+        with timing.span("lower.fill"):
+            for bd, idxs in buckets.items():
+                n = len(idxs)
+                stacked, idxs = nl.fill_bucket(
+                    idxs, bd, _next_batch_size(n, len(self.shards)), trips,
+                    self.config.silence_threshold, speed)
+                timing.count("fill.rows", n)
+                timing.count("fill.native", n)
+                shared = shared_plan_values(stacked, self.voice.lengths_np,
+                                            bd)
+                per_bucket.append((bd, idxs, (n, stacked, shared)))
         return (len(dims_list), per_bucket), spans
 
     def _prepare(self, plans):
@@ -338,6 +339,7 @@ class BatchSynthesizer:
                                for k, v in arrays.items()}
                 for k, v in arrays.items():
                     stacked[k][slot] = v
+            timing.count("fill.rows", n)
             idxs = self._order_and_pad(stacked, n, idxs)
             shared = shared_plan_values(stacked, self.voice.lengths_np, bd)
             per_bucket.append((bd, idxs, (n, stacked, shared)))

@@ -13,17 +13,27 @@ the port's core no longer needs (synth/plan_arrays.py fade_widths): the
 binding lowers with fade_out_ms 0 and writes the configuration's fade
 length into the slots the walk recorded, and refuses what
 plan_arrays.check_config refuses.
+
+A bucket's rows are filled by one call of fill_rows.cpp (beside this
+module; built with g++ at first use into ctts_tpu_torch/_build/, a
+failed build raises): ctl_fill_row a row, the fade lengths, the
+scalars, the length order and the pad rows, with the GIL released
+(`fill_bucket`). `fill_into` fills one row from Python and is the
+reference that tests/test_torch_fill_rows.py holds it to.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 
 from ctts_tpu_torch.config import CTTSConfig
+from ctts_tpu_torch.ops.hopper.build import BUILD_DIR, gxx_build
 from ctts_tpu_torch.plan.compiler import ms_to_samples
 from ctts_tpu_torch.runtime.native import make_and_open
 from ctts_tpu_torch.synth.plan_arrays import (
@@ -34,6 +44,8 @@ from ctts_tpu_torch.synth.plan_arrays import (
 
 _SO = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "runtime", "libctts.so")
+_FILL_SRC = Path(__file__).resolve().with_name("fill_rows.cpp")
+_FILL_SO = BUILD_DIR / "libctts_fill_rows.so"
 
 
 class _CConfig(ctypes.Structure):
@@ -106,7 +118,80 @@ def _shape_of(key: str, dims: PlanDims) -> tuple:
     return (dims.NSHIFT,)
 
 
+# The fields fill_rows.cpp finds by role (its enum Role, in order).
+_ROLES = ["region_len", "region_pause", "region_do_dsp",
+          "region_fade_after", "fade_pos", "fade_len", "threshold",
+          "speed", "refine_trips"]
+_SCALARS = [("threshold", np.float32), ("speed", np.float32),
+            ("refine_trips", np.int32)]
+_FIELDS = [name for name, _, _ in _MANIFEST] + [n for n, _ in _SCALARS]
+_ROLE_IDS = np.array([_FIELDS.index(name) for name in _ROLES], np.int32)
+_ROLE_ADDR = _ROLE_IDS.ctypes.data
+
+_ALIGN = 64   # each field's offset in a bucket's buffer
+
+
+@functools.lru_cache(maxsize=256)
+def _bucket_args(dims: PlanDims):
+    """The 8 bucket dims ctl_fill_row takes (int32) and the bytes a slot
+    of every field of _FIELDS (int64), and the addresses of both."""
+    bd = np.array([dims.U, dims.R, dims.FD, dims.NSHIFT, dims.MARGIN,
+                   dims.UBUF, dims.CONTW, min(dims.FADEW, dims.MARGIN)],
+                  np.int32)
+    row_bytes = np.array([
+        int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+        for _, shape, dt in _layout(dims)], np.int64)
+    return bd, row_bytes, bd.ctypes.data, row_bytes.ctypes.data
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(dims: PlanDims) -> tuple:
+    """(name, shape of a slot, dtype) of every field of _FIELDS."""
+    return tuple([(name, _shape_of(key, dims), dt)
+                  for name, key, dt in _MANIFEST]
+                 + [(name, (), dt) for name, dt in _SCALARS])
+
+
+@functools.lru_cache(maxsize=256)
+def _offsets(dims: PlanDims, bsz: int):
+    """A bucket buffer's bytes, each field's (name, shape, dtype, offset)
+    at an _ALIGN-aligned offset, and the offsets as uint64."""
+    fields, off = [], 0
+    for (name, shape, dt), rb in zip(_layout(dims),
+                                     _bucket_args(dims)[1].tolist()):
+        fields.append((name, (bsz,) + shape, dt, off))
+        off += -(-rb * bsz // _ALIGN) * _ALIGN
+    offs = np.array([f[3] for f in fields], np.uint64)
+    return max(off, _ALIGN), tuple(fields), offs
+
+
+def _alloc(dims: PlanDims, bsz: int):
+    """The stacked arrays of `bsz` slots, each a view of one byte buffer,
+    and their addresses (uint64, in _FIELDS order): one allocation, and
+    one address read, a bucket."""
+    nbytes, fields, offs = _offsets(dims, bsz)
+    buf = np.empty(nbytes, np.uint8)
+    stacked = {name: np.ndarray(shape, dt, buf, off)
+               for name, shape, dt, off in fields}
+    return stacked, offs + np.uint64(buf.ctypes.data)
+
+
 _lib = None
+_fill = None
+
+
+def _load_fill():
+    """Build and load fill_rows.cpp's library once; raises on failure."""
+    global _fill
+    if _fill is None:
+        lib = ctypes.CDLL(str(gxx_build(_FILL_SRC, _FILL_SO)))
+        P, I32 = ctypes.c_void_p, ctypes.c_int32
+        lib.ctf_fill_bucket.restype = I32
+        lib.ctf_fill_bucket.argtypes = [P, P, P, I32, I32, P, P, P, P, I32,
+                                        I32, P, I32, ctypes.c_float,
+                                        ctypes.c_float, P, P]
+        _fill = lib
+    return _fill
 
 
 def _load():
@@ -160,6 +245,7 @@ class NativeLowerer:
         for name, ctype in _CConfig._fields_:
             v = 0.0 if name == "fade_out_ms" else getattr(config, name)
             setattr(cc, name, int(v) if ctype is ctypes.c_int else float(v))
+        self._fill_row = ctypes.cast(lib.ctl_fill_row, ctypes.c_void_p)
         self._h = lib.ctl_open(db_path.encode(), ctypes.byref(cc))
         if not self._h:
             raise RuntimeError(f"ctl_open failed for {db_path}")
@@ -195,7 +281,8 @@ class NativeLowerer:
         [start, end) row range of input i, dims_list[r] the per-row
         derived PlanDims (pre-bucket), refine_trips[r] the per-row
         fixed-point trip count. Rows stay resident in the handle until
-        the next lower() call; fill_into() reads them by index.
+        the next lower() call; fill_bucket() and fill_into() read them
+        by index.
         """
         lib = self._lib
         lib.ctl_begin(self._h)
@@ -230,14 +317,31 @@ class NativeLowerer:
     def alloc_stacked(self, dims: PlanDims, bsz: int) -> dict:
         """Batch-stacked arrays in the manifest layout plus the three
         scalar fields, uninitialized where every slot is written."""
-        stacked = {
-            name: np.empty((bsz,) + _shape_of(key, dims), dt)
-            for name, key, dt in _MANIFEST
-        }
-        stacked["threshold"] = np.empty(bsz, np.float32)
-        stacked["speed"] = np.empty(bsz, np.float32)
-        stacked["refine_trips"] = np.empty(bsz, np.int32)
-        return stacked
+        return _alloc(dims, bsz)[0]
+
+    def fill_bucket(self, rows: Sequence[int], dims: PlanDims, bsz: int,
+                    trips: np.ndarray, threshold: float, speed: float):
+        """Fill the lowered rows `rows` (their ids, in arrival order) of
+        one bucket (bucketed dims) into new stacked arrays of `bsz`
+        slots, in one native call: what fill_into a row, the scalars
+        (`trips` every row's refine trips, by id, int32) and the length
+        order and pad rows of BatchSynthesizer._order_and_pad give, bit
+        for bit. Returns (stacked, the row ids in slot order)."""
+        n = len(rows)
+        stacked, bases = _alloc(dims, bsz)
+        *_, bd, row_bytes = _bucket_args(dims)
+        ids = np.array(rows, np.int32)
+        trips = np.ascontiguousarray(trips, np.int32)
+        slot_rows = np.empty(n, np.int32)
+        bad = ctypes.c_int32(-1)
+        rc = _load_fill().ctf_fill_bucket(
+            self._fill_row, self._h, bd, len(_FIELDS), len(_MANIFEST),
+            bases.ctypes.data, row_bytes, _ROLE_ADDR, ids.ctypes.data, n,
+            bsz, trips.ctypes.data, self._fade, threshold, speed,
+            slot_rows.ctypes.data, ctypes.byref(bad))
+        if rc != 0:
+            raise RuntimeError(f"ctl_fill_row failed: {rc} (row {bad.value})")
+        return stacked, slot_rows.tolist()
 
     def fill_into(self, row: int, dims: PlanDims, stacked: dict,
                   slot: int) -> None:
