@@ -61,38 +61,24 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      signature: its first batch runs eagerly, its second is captured,
      later ones replay) as served (the wire codec on: the default on a
      CUDA device) and with wire=False, and through the eager core (the
-     same BatchSynthesizer, its shards run op by op), all four in
-     turns. Each speed shows every kernel's launch count, read from the
-     profiler trace of one more served stream (replays alone) and equal
-     to the wrappers' counts, every graph output equal to the eager one
-     bit for bit, wire on equal to wire off, the
-     outputs held to the NumPy oracle (equal lengths, <= 2 LSB), and for
-     each way the steady-state audio-seconds of output per wall-second,
-     the host enqueue ms of each shard (staging and the replay, or the
-     eager launches) and peak memory (at 1.0 also the share of the
-     pitch kernel's rows at L = 220); the graphs captured (capture s,
-     launches per replay per kernel); the device idle share of a
-     3-batch stream under torch.profiler, served and eager; for the
-     codec, wire bytes over valid int16 bytes, pack_encode's device time
-     on that stream's last rows with the codec, the one copy of lengths,
-     overflow counts and classes to the host, and decode_rows's host
-     time per batch. Then one synchronous synthesize of batch 0 at
-     speed 0.5 through its graph, equal to the eager one and held to
-     the oracle, and the card's memory over a served and an eager
-     3-batch stream at 1.0 with every signature captured. The stream
-     yields batch N after batch N+2 is enqueued, so per-yield intervals
-     are not batch periods: the steady rate of batches 2-3 is their
-     audio over the wall time a 3-batch stream takes beyond a 1-batch
-     stream (the same fill and drain cancel), medians of interleaved
-     repeats. Then the varied stream at 1.0 and 1.5: N_VARIED batches of
-     texts drawn from the corpus and the bench texts (varied_texts), so
-     that buckets and batch sizes change from batch to batch, through
-     the graphs and the eager core in turns (graph, eager, eager,
-     graph), with the compiled core's eager / capture / replay runs per
-     batch, each pass's audio-s/s, outputs equal bit for bit and held to
-     the oracle. A failed capture or replay raises. Every stream and
-     batch of the phase runs no row again at a wider silence table
-     (rows_rerun 0: the default configuration never overflows);
+     same BatchSynthesizer, its shards run op by op), each way twice
+     (first-use set-up, then replays). Each speed shows every kernel's
+     launch count, read from the profiler trace of one more served
+     stream (replays alone) and equal to the wrappers' counts, every
+     graph output equal to the eager one bit for bit, wire on equal to
+     wire off, the outputs held to the NumPy oracle (equal lengths,
+     <= 2 LSB), and the graphs captured (launches per replay per
+     kernel). Then one synchronous synthesize of batch 0 at speed 0.5
+     through its graph, equal to the eager one and held to the oracle.
+     Then the varied stream at 1.0 and 1.5: N_VARIED batches of texts
+     drawn from the corpus and the bench texts (varied_texts), so that
+     buckets and batch sizes change from batch to batch, through the
+     graphs and the eager core in turns (graph, eager, eager, graph),
+     with the compiled core's eager / capture / replay runs per pass,
+     outputs equal bit for bit and held to the oracle. A failed capture
+     or replay raises. Every stream and batch of the phase runs no row
+     again at a wider silence table (rows_rerun 0: the default
+     configuration never overflows);
   6. the entry points: `python -m ctts_tpu_torch.cli build` of the
      generated dataset (byte-equal to phase 5's voice.db), then `synth`
      in a subprocess at speed 1.0 (no flags: the torch executor on the
@@ -102,11 +88,11 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      oracle; then CTTSEngine.synthesize_batch over the 120-utterance
      corpus (ctts_tpu_torch/testing/corpus.py), one call per speed, every
      utterance held to the oracle, twice: the first pass (every
-     signature new, so eager) timed, the second (captures) traced for
-     its launch counts and equal to the first, with no row run again;
-     then tools/torch_generate_samples.py in a subprocess with no flags
-     (the torch executor on the card) over the corpus: its seconds,
-     every WAV held to the oracle and listed on its page;
+     signature new, so eager), the second (captures) traced for its
+     launch counts and equal to the first, with no row run again; then
+     tools/torch_generate_samples.py in a subprocess with no flags (the
+     torch executor on the card) over the corpus: every WAV held to the
+     oracle and listed on its page;
   7. multi-device: the kernel library's CUDA runtime follows the device
      that torch.cuda.device makes current, on every card, and with two
      or more cards phase 4's kernels on cuda:1 with cuda:0 current
@@ -114,30 +100,21 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
      not run); stream() over phase 5's batches at 1.0 and 1.5 through a
      mesh of every visible card (make_mesh()) and through [cuda:0,
      cuda:0] (two shards on one card, one graph for both), each with
-     its graphs (wire on and off) and eager, in turns with the unsplit
-     served BatchSynthesizer, each output equal to phase 5's eager
-     stream bit for bit, with launch counts (from a profiler trace, as
-     in phase 5), steady audio-s/s, each shard's host enqueue ms and
-     peak memory per device;
+     its graphs (wire on and off) and eager, beside the unsplit served
+     BatchSynthesizer, each output equal to phase 5's eager stream bit
+     for bit, with launch counts (from a profiler trace, as in phase 5);
      dryrun_multigpu on both meshes; two processes over gloo, both on
      cuda:0, through synthesize_across_hosts over one batch, process
-     0's gather equal to the unsplit served output, with each
-     all_gather's bytes and time;
-     the voice bundle saved, loaded on the card and used for one
-     sentence, equal to DeviceVoice's, with both load times;
-  8. the one-sentence path and the bench: CTTSEngine.synthesize of each
-     bench text at 1.0 and 0.5 (execute_plan_torch through the compiled
-     core, a batch of one row), three passes on one engine (eager,
-     capture, replay; the third traced, every kernel's trace count equal
-     to what its graphs recorded times their replays, K6 at 0.5
-     included), passes 2-3 and the eager core equal to pass 1 bit for
-     bit and pass 1 held to the oracle, the warm latency eager vs replay
-     in turns and what a replay spends (plan compile, lowering, the
-     graphs' device time), and the card's reserved memory with those
-     graphs, with no row run again; then
-     `python -m ctts_tpu_torch.bench` in a subprocess, bounded
-     (BENCH_ENV): its line parsed and held to its parity bounds, with no
-     eager run or capture in its timed regions and silence_rows_rerun 0;
+     0's gather equal to the unsplit served output; the voice bundle
+     saved, loaded on the card and used for one sentence, equal to
+     DeviceVoice's;
+  8. the one-sentence path: CTTSEngine.synthesize of each bench text at
+     1.0 and 0.5 (execute_plan_torch through the compiled core, a batch
+     of one row), three passes on one engine (eager, capture, replay;
+     the third traced, every kernel's trace count equal to what its
+     graphs recorded times their replays, K6 at 0.5 included), passes
+     2-3 and the eager core equal to pass 1 bit for bit and pass 1 held
+     to the oracle, with no row run again;
   9. the configuration keys: the default and each of remove_dc_offset:
      0, min_silence_ms: 0, fade_in_ms: 300, fade_out_ms: 400,
      word_pause_ms: 0 and crossfade_ms: 200 alone, and three settings
@@ -169,15 +146,34 @@ import sys
 import tempfile
 import time
 
-# bench.py's serving corpus and the bucket floor of its headline section.
-from ctts_tpu_torch.bench import FLOOR, TEXTS
-
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# bench.py's serving corpus (bench.py:25-42) and the bucket floor of its
+# headline section (bench.py:248-250).
+TEXTS = [
+    "como vai?",
+    "que legal!",
+    "eu quero café, pão, e manteiga",
+    "bom dia. como vai. tudo bem.",
+    "eu tenho 5 livros",
+    "são 42 pessoas",
+    "a rosa é vermelha",
+    "minha casa é grande",
+    "o rato roeu a roupa do rei de roma",
+    "vamos para a praia",
+    "o brasil é um país muito bonito",
+    "quando chegar em casa, me liga",
+    "preciso comprar coisas para casa",
+    "hoje de manhã eu acordei cedo e fui trabalhar",
+    "isso é incrível!",
+    "onde fica o banco?",
+]
+FLOOR = {"U": 32, "R": 16, "FD": 8, "WREG": 32768, "SMAX": 114688,
+         "CONTW": 28672, "WIN": 2048, "CFMAX": 1024}
 
 BATCH_MULT = 8
 N_BATCHES = 3
 N_VARIED = 8        # batches of the varied stream (varied_texts)
-TIMING_REPEATS = 5  # interleaved 1- and 3-batch streams, medians used
 SAMPLE_RATE = 22050
 LSB_BOUND = 2       # int16 bound against the oracle (tests/test_device_executor.py)
 
@@ -1325,32 +1321,25 @@ def equal_outputs(np, got, want, what: str) -> None:
 def eager_twin(bs):
     """`bs` with its shards run by the eager core (op by op, freshly
     staged) in place of the compiled one: the reference a graph is held
-    to, and the parent's way of serving, for the timings."""
+    to."""
     from ctts_tpu_torch.synth import compiled
 
     bs._run_core = compiled.run_eager
     return bs
 
 
-def timed_method(bs, name: str, log: list):
-    """Wraps bs.<name> to append each call's host seconds to `log`
-    (_enqueue_shard: a shard's staging and its replay or eager
-    launches, pack and encode; _lower_batch: a batch's host lowering);
-    `del bs.<name>` restores it."""
-    run = getattr(bs, name)
+def runs_since(before: dict) -> dict:
+    """The compiled core's eager / capture / replay runs since `before`
+    (a copy of compiled.runs)."""
+    from ctts_tpu_torch.synth import compiled
 
-    def call(*args):
-        t0 = time.perf_counter()
-        out = run(*args)
-        log.append(time.perf_counter() - t0)
-        return out
-    setattr(bs, name, call)
+    return {k: compiled.runs[k] - before.get(k, 0)
+            for k in ("eager", "capture", "replay")}
 
 
 def captures(bs) -> list:
-    """The graphs captured for bs's cores: signature, capture seconds
-    (the three graphs of a signature) and kernel launches per replay of
-    the prologue and epilogue, and per refine trip."""
+    """The graphs captured for bs's cores: signature and kernel launches
+    per replay of the prologue and epilogue, and per refine trip."""
     from ctts_tpu_torch.synth import compiled
 
     toks = {getattr(s.core, "_graph_token", None) for s in bs.shards}
@@ -1361,7 +1350,7 @@ def captures(bs) -> list:
             out.append({"device": sig.device, "rows": dict(
                 (n, shape) for n, _, shape in sig.layout)["speed"][0],
                 "stretch": sig.dims.stretch, "hop": sig.dims.synth_hop,
-                "wire": sig.wire, "capture_s": entry.capture_s,
+                "wire": sig.wire,
                 "launches_per_replay": dict(entry.launches),
                 "launches_per_refine_trip": dict(entry.trip_launches)})
     return out
@@ -1393,44 +1382,6 @@ def profile_events(torch, run):
 def device_events(events) -> list:
     return [e for e in events if e.get("ph") == "X" and e.get("cat") in (
         "kernel", "gpu_memcpy", "gpu_memset")]
-
-
-def device_idle(torch, run, batches: int) -> dict:
-    """torch.profiler over run(): the window is the host span of run(),
-    the device busy time the union of the kernel, copy and fill
-    intervals of the card inside it. Returns the idle share, the kernel
-    time per batch and the largest kernels, or "not measured" when the
-    trace holds no device activity. Kernels replayed from a CUDA graph
-    are traced as kernels too."""
-    _, events, window = profile_events(torch, run)
-    dev = device_events(events)
-    if window is None or not dev:
-        return {"idle_share": "not measured",
-                "reason": "the trace holds no device activity"}
-    w0 = float(window["ts"])
-    w1 = w0 + float(window["dur"])
-    spans = sorted((max(float(e["ts"]), w0),
-                    min(float(e["ts"]) + float(e["dur"]), w1)) for e in dev)
-    busy, end = 0.0, w0
-    for a, b in spans:
-        if b <= end:
-            continue
-        busy += b - max(a, end)
-        end = b
-    kern = [e for e in dev if e["cat"] == "kernel"]
-    by_name: dict = {}
-    for e in kern:
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"window_ms": (w1 - w0) / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / (w1 - w0),
-            "kernels": len(kern),
-            "kernel_ms_per_batch": sum(by_name.values()) / 1e3 / batches,
-            "copy_fill_ms_per_batch": sum(
-                float(e["dur"]) for e in dev if e["cat"] != "kernel")
-            / 1e3 / batches,
-            "top_kernels_ms_per_batch": [(n[:60], d / 1e3 / batches)
-                                         for n, d in top]}
 
 
 def traced_launches(torch, hopper, run, what: str):
@@ -1471,8 +1422,7 @@ def traced_launches(torch, hopper, run, what: str):
         hopper.reset_launches()
         out, events, _ = profile_events(torch, warmed)
         counted = hopper.launch_counts()
-        runs = {k: compiled.runs[k] - before.get(k, 0)
-                for k in ("eager", "capture", "replay")}
+        runs = runs_since(before)
         names = [e["name"] for e in device_events(events)
                  if e["cat"] == "kernel"]
         per = {m.KERNEL: {g: sum(1 for n in names
@@ -1496,82 +1446,6 @@ def traced_launches(torch, hopper, run, what: str):
                            "traced": wrong, "kernels_traced": len(names)})
 
 
-def record_pitch_lengths(torch, hopper, run) -> dict:
-    """Runs `run` with the pitch kernel's wrapper wrapped to keep each
-    call's analysis lengths (clamped to [0, 220] as the kernel clamps
-    them); returns the count of rows and the share at L = 220 and L = 0."""
-    seen = []
-    wrapper = hopper.pitch.pitch_corr
-
-    def recording(seg, ana_len):
-        seen.append(ana_len.clamp(0, 220).clone())
-        return wrapper(seg, ana_len)
-
-    hopper.pitch.pitch_corr = recording
-    try:
-        run()
-    finally:
-        hopper.pitch.pitch_corr = wrapper
-    L = torch.cat(seen).cpu()
-    n = int(L.numel())
-    return {"calls": len(seen), "rows": n,
-            "share_L220": float((L == 220).sum()) / max(n, 1),
-            "share_L0": float((L == 0).sum()) / max(n, 1),
-            "mean_L": float(L.double().mean()) if n else 0.0}
-
-
-class WireProbe:
-    """Wraps synth/compiled.py's pack_encode and ops/wire_rows.py's
-    decode_rows while installed: keeps the last rows and lengths packed
-    and encoded with the codec and their classes, and the word count,
-    sample count and host seconds of every decode_rows call (the drain
-    thread makes one a batch)."""
-
-    def __init__(self, compiled, wire_rows):
-        self.compiled, self.wire_rows = compiled, wire_rows
-        self.pack_encode = compiled.pack_encode
-        self.decode_rows = wire_rows.decode_rows
-        self.last = None
-        self.decodes = []
-
-    def _pack_encode(self, out, out_lens, wire):
-        payload, classes = self.pack_encode(out, out_lens, wire)
-        if wire:
-            self.last = (out, out_lens, classes)
-        return payload, classes
-
-    def _decode_rows(self, shards, which=None):
-        t0 = time.perf_counter()
-        n = self.decode_rows(shards, which)
-        self.decodes.append((sum(int(s[0].shape[0]) for s in shards), n,
-                             time.perf_counter() - t0))
-        return n
-
-    def __enter__(self):
-        self.compiled.pack_encode = self._pack_encode
-        self.wire_rows.decode_rows = self._decode_rows
-        return self
-
-    def __exit__(self, *exc):
-        self.compiled.pack_encode = self.pack_encode
-        self.wire_rows.decode_rows = self.decode_rows
-
-
-def sync_ms(torch, np, classes, B: int, reps: int = 21) -> float:
-    """Host milliseconds of the trim's one copy: out_lens, overflow
-    counts [B] and classes, concatenated on the card and brought to
-    the host (median over `reps`, the card idle before each)."""
-    lens = torch.zeros(B, dtype=torch.int32, device=classes.device)
-    ovf = torch.zeros_like(lens)
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.cat([lens, ovf, classes]).cpu().numpy()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
-
-
 def rows_rerun() -> int:
     """Rows run again so far at a wider silence table (compiled.widened:
     a region with more than NBLK kept segments)."""
@@ -1590,99 +1464,35 @@ def no_rerun(before: int, what: str) -> int:
     return n
 
 
-def stream_of(torch, bs, n: int, speed: float):
-    """(outputs, wall s) of stream() over batches 0..n-1, from an idle
-    card to the last batch on the host."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = list(bs.stream((batch_texts(i) for i in range(n)), speed=speed))
-    return got, time.perf_counter() - t0
+def stream_of(bs, n: int, speed: float) -> list:
+    """The outputs of stream() over batches 0..n-1."""
+    return list(bs.stream((batch_texts(i) for i in range(n)), speed=speed))
 
 
 def serve(torch, np, hopper, ways: dict, speed: float,
           kernels: list) -> tuple:
-    """stream() over N_BATCHES batches at one speed through each way in
-    turns: the served BatchSynthesizer (graphs, the wire codec on),
-    `plain` (graphs, wire=False) and their eager twins. Every graph
-    output equals its eager twin's bit for bit, wire on equals wire off,
-    and the served outputs are held to the oracle. The launch counts are
-    read from the profiler's trace of one more served 3-batch stream,
-    served by replays alone and equal to the eager outputs, where every
-    kernel in `kernels` must have launched as often as the wrappers
-    count; each way's host enqueue ms a
-    shard, drain ms, steady rate and peak memory, the graphs' captures,
-    and the device idle share of a profiled 3-batch stream, served and
-    eager."""
-    from ctts_tpu_torch.ops import wire_rows
-    from ctts_tpu_torch.synth import compiled
-
+    """stream() over N_BATCHES batches at one speed through each way,
+    twice: the served BatchSynthesizer (graphs, the wire codec on),
+    `plain` (graphs, wire=False) and their eager twins. The first pass
+    is first-use set-up (a signature's first batch runs eagerly, its
+    second is captured); in the second, every graph output equals its
+    eager twin's bit for bit, wire on equals wire off, and the served
+    outputs are held to the oracle. The launch counts are read from the
+    profiler's trace of one more served 3-batch stream, served by
+    replays alone and equal to the eager outputs, where every kernel in
+    `kernels` must have launched as often as the wrappers count.
+    Returns the results and the eager outputs."""
     served = ways["wire"]
     rerun0 = rows_rerun()
-    # Host seconds of each batch's drain (_finish: wait for the copies,
-    # write the rows into their texts' arrays, decoding with the codec),
-    # on the drain thread but the last batch's, which runs on the main
-    # thread.
-    drains = {k: [] for k in ways}
-    enqueue = {k: [] for k in ways}
-
-    def timed_finish(bs, key):
-        finish = bs._finish
-
-        def run(trimmed, spans):
-            t0 = time.perf_counter()
-            out = finish(trimmed, spans)
-            drains[key].append(time.perf_counter() - t0)
-            return out
-        return run
-
-    lower = {k: [] for k in ways}
-    for key, bs in ways.items():
-        bs._finish = timed_finish(bs, key)
-        timed_method(bs, "_enqueue_shard", enqueue[key])
-        timed_method(bs, "_lower_batch", lower[key])
-    with WireProbe(compiled, wire_rows) as probe:
-        # First-use set-up, untimed: the graphs of every signature of
-        # the stream are captured here. At speed 1.0 the eager way also
-        # records the analysis length of every row the pitch kernel
-        # gets (in a graph the recording would be captured).
-        lengths = None
-        for key, bs in ways.items():
-            if speed == 1.0 and key == "eager":
-                lengths = record_pitch_lengths(
-                    torch, hopper, lambda: stream_of(torch, bs, N_BATCHES,
-                                                     speed))
-            else:
-                stream_of(torch, bs, N_BATCHES, speed)
-        walls = {k: ([], []) for k in ways}
-        batches, peak = {}, {}
-        for rep in range(TIMING_REPEATS):
-            last = rep == TIMING_REPEATS - 1
-            for key in (ways if rep % 2 == 0 else list(ways)[::-1]):
-                bs = ways[key]
-                walls[key][0].append(stream_of(torch, bs, 1, speed)[1])
-                if last:
-                    torch.cuda.reset_peak_memory_stats()
-                    drains[key].clear()
-                    enqueue[key].clear()
-                    lower[key].clear()
-                    if key == "wire":
-                        probe.decodes.clear()
-                batches[key], wall = stream_of(torch, bs, N_BATCHES, speed)
-                walls[key][1].append(wall)
-                if last:
-                    peak[key] = torch.cuda.max_memory_allocated()
-                    if key == "wire":
-                        decodes = list(probe.decodes)
-        rows, row_lens, classes = probe.last
     for bs in ways.values():
-        del bs._finish, bs._enqueue_shard, bs._lower_batch
+        stream_of(bs, N_BATCHES, speed)
+    batches = {key: stream_of(bs, N_BATCHES, speed)
+               for key, bs in ways.items()}
     # The counted run: the served stream once more, its launches read
     # from the profiler's trace.
     counted, launches, runs = traced_launches(
-        torch, hopper, lambda: stream_of(torch, served, N_BATCHES,
-                                         speed)[0],
+        torch, hopper, lambda: stream_of(served, N_BATCHES, speed),
         f"the served stream at {speed}")
-    idle = {key: stream_idle(torch, ways[key], speed) for key in ways}
 
     equal_outputs(np, batches["wire"], batches["eager"],
                   f"speed {speed}: graph vs eager, wire on")
@@ -1701,92 +1511,37 @@ def serve(torch, np, hopper, ways: dict, speed: float,
     if missing:
         raise RuntimeError(f"kernels not launched by the path at speed "
                            f"{speed}: {missing}")
-    audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
-             for outs in batches["wire"]]
     res = {"speed": speed, "batches": N_BATCHES,
            "sentences_per_batch": len(batch_texts(0)),
            "distinct_texts": len(TEXTS), "graph_equals_eager": True,
            "wire_equals_plain": True, "oracle_max_abs_diff": worst,
            "launches": launches, "compiled_runs": runs,
-           "audio_s_per_batch": audio,
-           "pitch_rows": lengths, "captures": captures(served)
-           + captures(ways["plain"]), "device_idle": idle,
+           "captures": captures(served) + captures(ways["plain"]),
            "rows_rerun": no_rerun(rerun0, f"the streams at {speed}")}
-    for key in ways:
-        w1, wn = walls[key]
-        wall_1 = sorted(w1)[TIMING_REPEATS // 2]
-        wall_n = sorted(wn)[TIMING_REPEATS // 2]
-        res[key] = {
-            "stream_1_batch_s": w1, "stream_3_batches_s": wn,
-            "stream_audio_s_per_wall_s": sum(audio) / wall_n,
-            "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
-            "steady_audio_s_per_wall_s_each": [
-                sum(audio[1:]) / (b - a) for a, b in zip(w1, wn)],
-            "enqueue_ms_per_shard": [d * 1e3 for d in enqueue[key]],
-            "enqueue_ms_median": float(np.median(enqueue[key])) * 1e3,
-            "lower_ms": [d * 1e3 for d in lower[key]],
-            "drain_ms": [d * 1e3 for d in drains[key]],
-            "max_memory_allocated_bytes": peak[key]}
-    words = sum(d[0] for d in decodes)
-    samples = sum(d[1] for d in decodes)
-    res["wire"].update({
-        "decode_calls": len(decodes),
-        "wire_bytes_over_int16_bytes": 4 * words / (2 * samples),
-        "pack_encode_device_ms": device_ms(
-            lambda: compiled.pack_encode(rows, row_lens, True), 10),
-        "pack_encode_rows_samples": list(rows.shape),
-        "pack_encode_valid_samples": int(row_lens.sum()),
-        "sync_lens_ovf_classes_ms": sync_ms(torch, np, classes,
-                                            len(batch_texts(0))),
-        "sync_int32_values": 2 * len(batch_texts(0))
-        + int(classes.shape[0]),
-        "decode_rows_ms": [d[2] * 1e3 for d in decodes]})
     return res, batches["eager"]
 
 
-def serve_varied(torch, np, served, eager, speed: float) -> dict:
+def serve_varied(np, served, eager, speed: float) -> dict:
     """stream() over N_VARIED batches of varied_texts through the served
     BatchSynthesizer (graphs, the wire codec on) and its eager twin in
     turns: graph, eager, eager, graph. The first graph pass meets the
     stream's signatures anew (a signature's first batch runs eagerly,
-    its second is captured), the second pass replays. Per batch of each
-    graph pass, the buckets and the compiled core's eager / capture /
-    replay runs; per pass, the audio-seconds per wall-second of the whole
-    stream. Every output equals the eager twin's bit for bit, and the
-    eager outputs are held to the oracle."""
+    its second is captured), the second replays; each pass's eager /
+    capture / replay runs are counted. Every output equals the eager
+    twin's bit for bit, and the eager outputs are held to the oracle."""
     from ctts_tpu_torch.synth import compiled
 
-    per_batch = []
-    enqueue = served._enqueue
-
-    def counted(prepared):
-        before = dict(compiled.runs)
-        out = enqueue(prepared)
-        per_batch.append(dict(
-            {k: compiled.runs[k] - before.get(k, 0)
-             for k in ("eager", "capture", "replay")},
-            buckets=len(prepared[1])))
-        return out
-    served._enqueue = counted
     outs, passes = {}, []
-    try:
-        for key, bs in (("graph", served), ("eager", eager),
-                        ("eager", eager), ("graph", served)):
-            per_batch.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = list(bs.stream((varied_texts(i) for i in range(N_VARIED)),
-                                 speed=speed))
-            wall = time.perf_counter() - t0
-            if key in outs:
-                equal_outputs(np, got, outs[key], f"varied at {speed}: "
-                              f"{key} passes")
-            outs[key] = got
-            passes.append({"way": key, "wall_s": wall,
-                           "per_batch": list(per_batch) if key == "graph"
-                           else None})
-    finally:
-        del served._enqueue
+    for key, bs in (("graph", served), ("eager", eager),
+                    ("eager", eager), ("graph", served)):
+        before = dict(compiled.runs)
+        got = list(bs.stream((varied_texts(i) for i in range(N_VARIED)),
+                             speed=speed))
+        if key in outs:
+            equal_outputs(np, got, outs[key], f"varied at {speed}: "
+                          f"{key} passes")
+        outs[key] = got
+        passes.append({"way": key, "compiled_runs": runs_since(before)})
     equal_outputs(np, outs["graph"], outs["eager"],
                   f"varied at {speed}: graph vs eager")
     refs, worst = {}, 0
@@ -1796,53 +1551,11 @@ def serve_varied(torch, np, served, eager, speed: float) -> dict:
                 refs[text] = oracle(served.db, served.config, text, speed)
             worst = max(worst, held_to(np, out, refs[text],
                                        f"{text!r} at {speed}"))
-    audio = sum(o.shape[0] for b in outs["eager"] for o in b) / SAMPLE_RATE
-    for p in passes:
-        p["audio_s_per_wall_s"] = audio / p["wall_s"]
     return {"speed": speed, "batches": N_VARIED,
             "sentences_per_batch": len(varied_texts(0)),
-            "distinct_texts": len(refs), "audio_s": audio,
-            "graph_equals_eager": True, "oracle_max_abs_diff": worst,
-            "passes": passes, "graphs_captured": len(compiled.signatures())}
-
-
-def stream_idle(torch, bs, speed: float) -> dict:
-    """device_idle over a 3-batch and a 1-batch stream: the 3-batch
-    stream's idle share, and that of batches 2-3 alone (the two streams'
-    difference in busy time over their difference in wall time, as the
-    steady rate is taken)."""
-    three = device_idle(torch, lambda: stream_of(torch, bs, N_BATCHES,
-                                                 speed), N_BATCHES)
-    one = device_idle(torch, lambda: stream_of(torch, bs, 1, speed), 1)
-    if "busy_ms" not in three or "busy_ms" not in one:
-        return three
-    return dict(three, one_batch_window_ms=one["window_ms"],
-                one_batch_busy_ms=one["busy_ms"],
-                idle_share_batches_2_3=1.0 - (
-                    three["busy_ms"] - one["busy_ms"])
-                / (three["window_ms"] - one["window_ms"]))
-
-
-def graph_memory(torch, served, eager) -> dict:
-    """The card's memory while serving 3 batches at 1.0 with every
-    signature of phase 5 captured: after empty_cache, the peak reserved
-    bytes of the served stream (the graphs' shared pool included) and of
-    the eager stream, with their peak allocated bytes."""
-    from ctts_tpu_torch.synth import compiled
-
-    res = {"graphs_captured": len(compiled.signatures())}
-    for key, bs in (("graph", served), ("eager", eager)):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_reserved()
-        torch.cuda.reset_peak_memory_stats()
-        stream_of(torch, bs, N_BATCHES, 1.0)
-        res[key] = {"reserved_before_bytes": base,
-                    "max_memory_reserved_bytes":
-                        torch.cuda.max_memory_reserved(),
-                    "max_memory_allocated_bytes":
-                        torch.cuda.max_memory_allocated()}
-    return res
+            "distinct_texts": len(refs), "graph_equals_eager": True,
+            "oracle_max_abs_diff": worst, "passes": passes,
+            "graphs_captured": len(compiled.signatures())}
 
 
 def run_slice(torch, np, hopper, root: str):
@@ -1884,10 +1597,7 @@ def run_slice(torch, np, hopper, root: str):
     rerun0 = rows_rerun()
     for _ in range(2):    # first-use set-up: the eager batch, the capture
         served.synthesize(texts, speed=SYNC_SPEED)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     outs = served.synthesize(texts, speed=SYNC_SPEED)
-    wall = time.perf_counter() - t0
     traced, launches, runs = traced_launches(
         torch, hopper, lambda: served.synthesize(texts, speed=SYNC_SPEED),
         f"synthesize at {SYNC_SPEED}")
@@ -1902,29 +1612,19 @@ def run_slice(torch, np, hopper, root: str):
                            f"{SYNC_SPEED}: {missing}")
     equal_outputs(np, [outs], [ways["eager"].synthesize(
         texts, speed=SYNC_SPEED)], f"speed {SYNC_SPEED}: graph vs eager")
-    audio = sum(o.shape[0] for o in outs) / SAMPLE_RATE
     res["0.5"] = {"speed": SYNC_SPEED, "sentences": len(texts),
                   "oracle_max_abs_diff": worst, "graph_equals_eager": True,
                   "launches": launches, "compiled_runs": runs,
-                  "wall_s": wall, "audio_s": audio,
-                  "audio_s_per_wall_s": audio / wall,
                   "rows_rerun": no_rerun(rerun0,
                                          f"synthesize at {SYNC_SPEED}")}
     say("synthesize_sync", res["0.5"])
-    res["memory"] = dict(graph_memory(torch, served, ways["eager"]),
-                         served_captures=captures(served))
-    say("graph_memory", res["memory"])
     for speed in (1.0, STRETCH_SPEED):
         rerun0 = rows_rerun()
-        res[f"varied_{speed}"] = serve_varied(torch, np, served,
-                                              ways["eager"], speed)
+        res[f"varied_{speed}"] = serve_varied(np, served, ways["eager"],
+                                              speed)
         res[f"varied_{speed}"]["rows_rerun"] = no_rerun(
             rerun0, f"the varied stream at {speed}")
         say("slice_varied", res[f"varied_{speed}"])
-    res["memory"]["after_varied"] = {
-        "graphs_captured": len(captures(served)),
-        "memory_reserved_bytes": torch.cuda.memory_reserved()}
-    say("graph_memory_after_varied", res["memory"]["after_varied"])
     return res, served, outputs
 
 
@@ -1951,6 +1651,7 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.models.engine import CTTSEngine
+    from ctts_tpu_torch.synth import compiled
     from ctts_tpu_torch.testing.corpus import CORPUS
     from ctts_tpu_torch.utils.wav import read_wav
 
@@ -1960,20 +1661,18 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
 
     def run_cli(args):
-        t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "ctts_tpu_torch.cli"]
                            + args, cwd=work, env=env, capture_output=True,
                            text=True, timeout=600)
         if r.returncode != 0:
             raise RuntimeError(f"ctts_tpu_torch.cli {args[0]}: rc "
                                f"{r.returncode}\n{r.stdout}{r.stderr}")
-        return time.perf_counter() - t0
 
-    res = {"build_s": run_cli(["build", os.path.join(root, "dataset"),
-                               "cli.db"])}
+    run_cli(["build", os.path.join(root, "dataset"), "cli.db"])
     dbp = os.path.join(work, "cli.db")
     if not filecmp.cmp(dbp, os.path.join(root, "voice.db"), shallow=False):
         raise RuntimeError("cli build: voice.db differs from the builder's")
+    res = {}
     db, cfg = VoiceDatabase(dbp), config_defaults()
     cases = []
     cwd = os.getcwd()
@@ -1981,10 +1680,10 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     try:
         for i, (text, speed, flags) in enumerate(CLI_CASES):
             wav = f"sub{i}.wav"
-            wall = run_cli(["synth", "cli.db", text, wav, speed] + flags)
+            run_cli(["synth", "cli.db", text, wav, speed] + flags)
             got = read_wav(wav)
             case = {"text": text, "speed": float(speed), "flags": flags,
-                    "subprocess_s": wall, "samples": int(got.shape[0]),
+                    "samples": int(got.shape[0]),
                     "oracle_max_abs_diff": held_to_oracle(
                         np, db, cfg, got, text, float(speed))}
             hopper.reset_launches()
@@ -2028,19 +1727,11 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     try:
         # First pass: every signature is new, so every batch runs
         # eagerly; the second (traced) captures them and replays.
-        from ctts_tpu_torch.synth import compiled
-
         before = dict(compiled.runs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         outs = corpus()
-        wall = time.perf_counter() - t0
-        first = {k: compiled.runs[k] - before.get(k, 0)
-                 for k in ("eager", "capture", "replay")}
-        t0 = time.perf_counter()
+        first = runs_since(before)
         again, launches, runs = traced_launches(torch, hopper, corpus,
                                                 "the corpus")
-        wall_again = time.perf_counter() - t0
         for sp in groups:
             equal_outputs(np, [again[sp]], [outs[sp]],
                           f"corpus at {sp}: second pass vs first")
@@ -2056,14 +1747,11 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
     if missing or first["capture"] or first["replay"] or not runs["capture"]:
         raise RuntimeError(f"corpus: kernels not launched: {missing}, or "
                            f"the passes ran {first} and {runs}")
-    audio = sum(o.shape[0] for v in outs.values() for o in v) / SAMPLE_RATE
     res["corpus"] = {"utterances": sum(len(v) for v in outs.values()),
                      "held_to_oracle": sum(len(v) for v in outs.values()),
                      "speeds": {str(k): len(v) for k, v in groups.items()},
-                     "oracle_max_abs_diff": worst, "audio_s": audio,
-                     "wall_s": wall, "compiled_runs": first,
-                     "second_pass": {"wall_s_traced": wall_again,
-                                     "compiled_runs": runs,
+                     "oracle_max_abs_diff": worst, "compiled_runs": first,
+                     "second_pass": {"compiled_runs": runs,
                                      "launches": launches},
                      "rows_rerun": no_rerun(rerun0, "the corpus")}
     res["demo_page"] = run_demo_page(np, work, env, dbp, db, cfg)
@@ -2074,7 +1762,7 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
 def run_demo_page(np, work: str, env: dict, dbp: str, db, cfg) -> dict:
     """tools/torch_generate_samples.py as a user runs it: no flags (the
     torch executor on the card), in a subprocess, over the corpus; every
-    WAV held to the oracle and listed on the page."""
+    WAV held to the oracle and listed on its page."""
     import subprocess
 
     from ctts_tpu_torch.constants import MAX_SPEED, MIN_SPEED
@@ -2082,11 +1770,9 @@ def run_demo_page(np, work: str, env: dict, dbp: str, db, cfg) -> dict:
     from ctts_tpu_torch.utils.wav import read_wav
 
     out = os.path.join(work, "samples")
-    t0 = time.perf_counter()
     r = subprocess.run([sys.executable, os.path.join(
         REPO, "tools", "torch_generate_samples.py"), dbp, out], cwd=work,
         env=env, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
     if r.returncode != 0:
         raise RuntimeError(f"torch_generate_samples.py: rc {r.returncode}"
                            f"\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
@@ -2101,19 +1787,17 @@ def run_demo_page(np, work: str, env: dict, dbp: str, db, cfg) -> dict:
             np, db, cfg, read_wav(os.path.join(out, "audio", fname)), text,
             speed))
     return {"utterances": len(CORPUS), "held_to_oracle": len(CORPUS),
-            "oracle_max_abs_diff": worst, "tool_s": wall,
+            "oracle_max_abs_diff": worst,
             "tool_last_line": r.stdout.strip().splitlines()[-1]}
 
 
-# Phase 7. The split streams' interleaved repeats (as serve(), fewer).
-SPLIT_REPEATS = 3
-
 # One rank of the two-process exchange, both on cuda:0:
 #   python -c GLOO_WORKER coordinator rank voice.db out.npz texts floor
-# It serves its block of the texts through synthesize_across_hosts with
-# every all_gather timed; rank 0 saves the gathered outputs.
+# It serves its block of the texts through synthesize_across_hosts, its
+# local rows equal to its slice of the gather; rank 0 saves the gathered
+# outputs.
 GLOO_WORKER = r"""
-import json, sys, time
+import json, sys
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -2132,24 +1816,8 @@ bs = BatchSynthesizer(VoiceDatabase(dbp), config_defaults(),
                       device=torch.device("cuda", 0), dims_floor=floor)
 for _ in range(2):    # first-use set-up: the eager batch, the capture
     synthesize_across_hosts(bs, texts, return_local=True)
-gathers = []
-all_gather = dist.all_gather
-def timed(parts, t, *args, **kwargs):
-    t0 = time.perf_counter()
-    out = all_gather(parts, t, *args, **kwargs)
-    gathers.append({"dtype": str(t.dtype),
-                    "bytes": t.numel() * t.element_size(),
-                    "s": time.perf_counter() - t0})
-    return out
-dist.all_gather = timed
-dist.barrier()
-t0 = time.perf_counter()
 outs = synthesize_across_hosts(bs, texts)
-call_s = time.perf_counter() - t0
-dist.barrier()
-t0 = time.perf_counter()
 idx, local = synthesize_across_hosts(bs, texts, return_local=True)
-local_s = time.perf_counter() - t0
 for i, o in zip(idx, local):
     assert np.array_equal(o, outs[i]), i
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -2157,9 +1825,7 @@ loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
 assert not loaded, loaded
 if rank == 0:
     np.savez(outp, *outs)
-print("RESULT " + json.dumps({"rank": rank, "rows": len(idx),
-                              "call_s": call_s, "local_call_s": local_s,
-                              "gathers": gathers}), flush=True)
+print("RESULT " + json.dumps({"rank": rank, "rows": len(idx)}), flush=True)
 dist.destroy_process_group()
 """
 
@@ -2202,46 +1868,20 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
                   kernels: list) -> dict:
     """stream() over N_BATCHES batches at one speed through each
     BatchSynthesizer of `ways` (the unsplit served one, and per mesh its
-    graphs with the codec on and off and its eager twin), in turns, timed
-    as serve() times them; every output equals `want` (phase 5's eager
-    stream, equal to its graphs) bit for bit. Each shard's host enqueue
-    ms (staging and the replay or the eager launches, pack, encode) and
-    peak memory per device are those of each way's last timed 3-batch
-    stream; the launch counts come from the profiler's trace of one more
+    graphs with the codec on and off and its eager twin), twice: the
+    first pass is first-use set-up, and every output of the second
+    equals `want` (phase 5's eager stream, equal to its graphs) bit for
+    bit. The launch counts come from the profiler's trace of one more
     3-batch stream a way (traced_launches; graphs: replays alone), where
     every kernel in `kernels` must have launched."""
-    enqueue = {k: [] for k in ways}
+    for bs in ways.values():
+        stream_of(bs, N_BATCHES, speed)
+    got = {key: stream_of(bs, N_BATCHES, speed) for key, bs in ways.items()}
+    counted, launches, runs = {}, {}, {}
     for key, bs in ways.items():
-        timed_method(bs, "_enqueue_shard", enqueue[key])
-    try:
-        for bs in ways.values():
-            stream_of(torch, bs, N_BATCHES, speed)    # first-use set-up
-        walls = {k: ([], []) for k in ways}
-        got, launches, peak = {}, {}, {}
-        for rep in range(SPLIT_REPEATS):
-            last = rep == SPLIT_REPEATS - 1
-            for key in (ways if rep % 2 == 0 else list(ways)[::-1]):
-                bs = ways[key]
-                devs = sorted({s.device for s in bs.shards}, key=str)
-                walls[key][0].append(stream_of(torch, bs, 1, speed)[1])
-                if last:
-                    for d in devs:
-                        torch.cuda.reset_peak_memory_stats(d)
-                    enqueue[key].clear()
-                got[key], wall = stream_of(torch, bs, N_BATCHES, speed)
-                walls[key][1].append(wall)
-                if last:
-                    peak[key] = {str(d): torch.cuda.max_memory_allocated(d)
-                                 for d in devs}
-        counted, runs = {}, {}
-        for key, bs in ways.items():
-            counted[key], launches[key], runs[key] = traced_launches(
-                torch, hopper, lambda: stream_of(torch, bs, N_BATCHES,
-                                                 speed)[0],
-                f"{key} at {speed}")
-    finally:
-        for bs in ways.values():
-            del bs._enqueue_shard
+        counted[key], launches[key], runs[key] = traced_launches(
+            torch, hopper, lambda: stream_of(bs, N_BATCHES, speed),
+            f"{key} at {speed}")
 
     res = {"speed": speed, "batches": N_BATCHES,
            "sentences_per_batch": len(batch_texts(0))}
@@ -2258,27 +1898,9 @@ def split_streams(torch, np, hopper, ways, want, speed: float,
         if missing:
             raise RuntimeError(f"{key} at {speed}: kernels not launched: "
                                f"{missing}")
-        audio = [sum(o.shape[0] for o in outs) / SAMPLE_RATE
-                 for outs in got[key]]
-        w1, wn = walls[key]
-        wall_1 = sorted(w1)[SPLIT_REPEATS // 2]
-        wall_n = sorted(wn)[SPLIT_REPEATS // 2]
-        size = len(bs.shards)
-        per_shard = [[x * 1e3 for x in enqueue[key][i::size]]
-                     for i in range(size)]
-        res[key] = {
-            "shards": [str(s.device) for s in bs.shards],
-            "graph": graph,
-            "equal_to_unsplit_eager": True,
-            "launches": launches[key], "compiled_runs": runs[key],
-            "stream_1_batch_s": w1, "stream_3_batches_s": wn,
-            "steady_audio_s_per_wall_s": sum(audio[1:]) / (wall_n - wall_1),
-            "steady_audio_s_per_wall_s_each": [
-                sum(audio[1:]) / (b - a) for a, b in zip(w1, wn)],
-            "enqueue_ms_per_shard": per_shard,
-            "enqueue_ms_median_per_shard": [
-                float(np.median(x)) for x in per_shard],
-            "max_memory_allocated_bytes": peak[key]}
+        res[key] = {"shards": [str(s.device) for s in bs.shards],
+                    "graph": graph, "equal_to_unsplit_eager": True,
+                    "launches": launches[key], "compiled_runs": runs[key]}
     return res
 
 
@@ -2297,7 +1919,6 @@ def run_exchange(np, root: str, dbp: str, want: list) -> dict:
     outp = os.path.join(root, "exchange.npz")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", GLOO_WORKER, f"127.0.0.1:{port}", str(rank),
          dbp, outp, json.dumps(texts), json.dumps(FLOOR)], env=env,
@@ -2312,7 +1933,6 @@ def run_exchange(np, root: str, dbp: str, want: list) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall = time.perf_counter() - t0
     for p, log in zip(procs, logs):
         if p.returncode != 0:
             raise RuntimeError(f"exchange worker: rc {p.returncode}\n"
@@ -2327,15 +1947,12 @@ def run_exchange(np, root: str, dbp: str, want: list) -> dict:
         raise RuntimeError("gloo exchange: process 0's gather differs from "
                            "the unsplit served output")
     return {"processes": 2, "device": "cuda:0 (both)", "texts": len(texts),
-            "equal_to_unsplit_served": True, "wall_s_both_processes": wall,
-            "ranks": ranks}
+            "equal_to_unsplit_served": True, "ranks": ranks}
 
 
 def run_bundle(torch, np, root: str, db) -> dict:
     """Save the voice bundle, load it on the card, and synthesize one
-    sentence with it and with DeviceVoice: equal tensors and samples;
-    the bundle's load time beside DeviceVoice's pad-and-gain
-    construction (each three times, interleaved, synchronized)."""
+    sentence with it and with DeviceVoice: equal tensors and samples."""
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.bundle import VoiceBundle, save_voice_bundle
     from ctts_tpu_torch.plan.compiler import compile_plan
@@ -2343,23 +1960,9 @@ def run_bundle(torch, np, root: str, db) -> dict:
 
     path = os.path.join(root, "voice_bundle.npz")
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
     save_voice_bundle(db, path)
-    save_s = time.perf_counter() - t0
-
-    def timed(make):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        voice = make()
-        torch.cuda.synchronize()
-        return voice, time.perf_counter() - t0
-
-    load_s, voice_s = [], []
-    for _ in range(3):
-        bundle, s = timed(lambda: VoiceBundle(path, dev))
-        load_s.append(s)
-        voice, s = timed(lambda: DeviceVoice(db, device=dev))
-        voice_s.append(s)
+    bundle = VoiceBundle(path, dev)
+    voice = DeviceVoice(db, device=dev)
     for name in ("bank", "lengths", "gains"):
         if not torch.equal(getattr(bundle, name), getattr(voice, name)):
             raise RuntimeError(f"bundle: {name} differs from DeviceVoice's")
@@ -2371,8 +1974,7 @@ def run_bundle(torch, np, root: str, db) -> dict:
         raise RuntimeError("bundle: the sentence differs from DeviceVoice's")
     return {"text": text, "samples": int(got.shape[0]),
             "equal_to_device_voice": True, "bytes": os.path.getsize(path),
-            "units": int(bundle.bank.shape[0]), "save_s": save_s,
-            "bundle_load_s": load_s, "device_voice_s": voice_s}
+            "units": int(bundle.bank.shape[0])}
 
 
 def run_multi_device(torch, np, hopper, root: str, served,
@@ -2408,11 +2010,8 @@ def run_multi_device(torch, np, hopper, root: str, served,
                                outputs[STRETCH_SPEED], STRETCH_SPEED, names)
     say("multi_device_stream_stretch", res["1.5"])
     del ways
-    res["dryrun"] = {}
-    for key, mesh in meshes.items():
-        t0 = time.perf_counter()
-        res["dryrun"][key] = dict(dryrun_multigpu(mesh.devices, dbp),
-                                  wall_s=time.perf_counter() - t0)
+    res["dryrun"] = {key: dryrun_multigpu(mesh.devices, dbp)
+                     for key, mesh in meshes.items()}
     say("multi_device_dryrun", res["dryrun"])
     res["exchange"] = run_exchange(np, root, dbp, outputs[1.0][0])
     say("multi_device_exchange", res["exchange"])
@@ -2422,20 +2021,14 @@ def run_multi_device(torch, np, hopper, root: str, served,
 
 
 # Phase 8. The one-sentence path: CTTSEngine.synthesize over the bench
-# texts at these speeds, and eager vs replay latency in this many turns.
+# texts at these speeds.
 SENTENCE_SPEEDS = (1.0, SYNC_SPEED)
-LATENCY_TURNS = 5
-# The bounded bench: python -m ctts_tpu_torch.bench with these settings.
-BENCH_ENV = {"CTTS_BENCH_ITERS": "2", "CTTS_BENCH_PARAGRAPH": "0",
-             "CTTS_BENCH_1024": "0"}
-PARITY_BOUND = LSB_BOUND / 32768.0
 
 
 @contextlib.contextmanager
 def eager_sentences():
     """execute_plan_torch runs the eager core while installed (the
-    reference its graphs are held to, and the parent's way of running
-    one sentence, for the timings)."""
+    reference its graphs are held to)."""
     from ctts_tpu_torch.synth import compiled
 
     run = compiled.run_batch
@@ -2446,69 +2039,13 @@ def eager_sentences():
         compiled.run_batch = run
 
 
-def sentence_latency_parts(torch, np, eng, text: str,
-                           reps: int = 21) -> dict:
-    """What a warm replay of one sentence at 1.0 spends: host ms of the
-    plan compile, of the lowering into its bucket, and of the whole
-    synthesize (medians over reps), and the device ms of its graphs
-    (prologue, trips, epilogue; device_ms, queued behind a spin kernel)
-    and the kernel, copy and fill ms of its eager core in a profiler
-    trace (its ~1000 launches do not fit behind one spin)."""
-    from ctts_tpu_torch.synth import compiled
-    from ctts_tpu_torch.synth.device import lower_sentence, refine_depth
-
-    def host_ms(fn):
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(times))
-
-    plan = eng.compile(text, 1.0)
-    voice = eng._voice
-    core = voice.core()
-    dims, arrays, shared = lower_sentence(plan, eng.db, voice)
-    sig, layout, merged = compiled.signature(core, dims, arrays, shared,
-                                             False)
-    entry = compiled.captured(sig)
-    if entry is None:
-        raise RuntimeError(f"{text!r}: its graphs were not captured")
-    trips = refine_depth(merged)
-    entry.layout.upload(merged, entry.static_in.device, entry.static_in)
-    ar = layout.upload(merged, entry.static_in.device)
-
-    def replays():
-        entry.prologue.replay()
-        for _ in range(trips):
-            entry.trip.replay()
-        entry.epilogue.replay()
-
-    def synthesize():
-        eng.synthesize(text, 1.0)
-        torch.cuda.synchronize()
-
-    return {"text": text, "compile_ms": host_ms(
-                lambda: eng.compile(text, 1.0)),
-            "lower_ms": host_ms(lambda: lower_sentence(plan, eng.db, voice)),
-            "synthesize_ms": host_ms(synthesize),
-            "graphs_device_ms": device_ms(replays, 5),
-            "eager_profiler_device_ms": sum(
-                float(e["dur"]) for e in device_events(profile_events(
-                    torch, lambda: compiled.batch_core(
-                        core, dims, ar, trips, False))[1])) / 1e3,
-            "trips": trips, "rows": 1}
-
-
 def run_one_sentence(torch, np, hopper, dbp: str) -> dict:
-    """Phase 8a: CTTSEngine.synthesize of each bench text at 1.0 and 0.5,
+    """Phase 8: CTTSEngine.synthesize of each bench text at 1.0 and 0.5,
     three passes on one engine: the first runs every signature eagerly,
     the second captures, the third (traced: every kernel's trace count
     equals what its graphs recorded times their replays, K6 at 0.5
     included) replays only. Passes 2-3 equal pass 1 bit for bit, and
-    pass 1 equals the eager core and is held to the oracle. Then the warm
-    latency of each text at 1.0, eager and replayed in turns, and the
-    card's reserved memory with these graphs held."""
+    pass 1 equals the eager core and is held to the oracle."""
     from ctts_tpu_torch.models.engine import CTTSEngine
     from ctts_tpu_torch.synth import compiled
 
@@ -2523,8 +2060,7 @@ def run_one_sentence(torch, np, hopper, dbp: str) -> dict:
         for _ in range(2):
             before = dict(compiled.runs)
             passes.append(one_pass())
-            runs.append({k: compiled.runs[k] - before.get(k, 0)
-                         for k in ("eager", "capture", "replay")})
+            runs.append(runs_since(before))
         third, launches, runs3 = traced_launches(
             torch, hopper, one_pass, "the one-sentence replays")
         with eager_sentences():
@@ -2545,22 +2081,6 @@ def run_one_sentence(torch, np, hopper, dbp: str) -> dict:
         worst = max(held_to_oracle(np, eng.db, eng.config, o, t, sp)
                     for sp, outs in zip(SENTENCE_SPEEDS, passes[0])
                     for t, o in zip(TEXTS, outs))
-        lat = {"eager": {t: [] for t in TEXTS},
-               "replay": {t: [] for t in TEXTS}}
-        for turn in range(LATENCY_TURNS):
-            for way in (("eager", "replay") if turn % 2 == 0
-                        else ("replay", "eager")):
-                with (eager_sentences() if way == "eager"
-                      else contextlib.nullcontext()):
-                    for t in TEXTS:
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        eng.synthesize(t, 1.0)
-                        lat[way][t].append((time.perf_counter() - t0) * 1e3)
-        medians = {way: [float(np.median(v)) for v in per.values()]
-                   for way, per in lat.items()}
-        breakdown = sentence_latency_parts(torch, np, eng, TEXTS[10])
-        reserved = torch.cuda.memory_reserved()
         graphs = len(compiled.signatures())
     finally:
         eng.close()
@@ -2570,57 +2090,8 @@ def run_one_sentence(torch, np, hopper, dbp: str) -> dict:
             "compiled_runs": runs + [runs3],
             "launches_third_pass": launches,
             "launches_per_replay": {k: v / n for k, v in launches.items()},
-            "latency_ms_median_per_text": medians,
-            "latency_ms_median": {way: float(np.median(v))
-                                  for way, v in medians.items()},
-            "latency_parts_ms": breakdown,
-            "replay_over_eager": float(np.median(medians["replay"]))
-            / float(np.median(medians["eager"])),
-            "graphs_captured": graphs, "memory_reserved_bytes": reserved,
-            "memory_reserved_after_close_bytes": torch.cuda.memory_reserved(),
+            "graphs_captured": graphs,
             "rows_rerun": no_rerun(rerun0, "the one-sentence passes")}
-
-
-def run_bench(np) -> dict:
-    """Phase 8b: `python -m ctts_tpu_torch.bench` in a subprocess at
-    BENCH_ENV; its last line must parse, with backend cuda, a nonzero
-    value, parity and stretch parity within LSB_BOUND of the oracle with
-    equal lengths, the mesh equal to the unsharded stream, and no eager
-    run or capture inside its timed regions."""
-    import subprocess
-
-    env = dict(os.environ, **BENCH_ENV)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "ctts_tpu_torch.bench"],
-                       cwd=REPO, env=env, capture_output=True, text=True,
-                       timeout=600)
-    wall = time.perf_counter() - t0
-    lines = r.stdout.strip().splitlines()
-    if r.returncode != 0 or not lines:
-        raise RuntimeError(f"bench: rc {r.returncode}\n{r.stdout[-2000:]}"
-                           f"{r.stderr[-4000:]}")
-    line = json.loads(lines[-1])
-    bad = {k: line.get(k) for k, ok in (
-        ("backend", line.get("backend") == "cuda"),
-        ("value", line.get("value", 0) > 0),
-        ("headline_window_x_realtime_per_chip",
-         line.get("headline_window_x_realtime_per_chip", 0) > 0),
-        ("parity_max_abs_vs_oracle",
-         line.get("parity_max_abs_vs_oracle", 1) <= PARITY_BOUND),
-        ("parity_length_match", line.get("parity_length_match") is True),
-        ("stretch_parity_max_abs_vs_oracle",
-         line.get("stretch_parity_max_abs_vs_oracle", 1) <= PARITY_BOUND),
-        ("stretch_parity_length_match",
-         line.get("stretch_parity_length_match") is True),
-        ("mesh_matches_unsharded", line.get("mesh_matches_unsharded") is True),
-        ("timed_eager_runs", line.get("timed_eager_runs") == 0),
-        ("timed_capture_runs", line.get("timed_capture_runs") == 0),
-        ("silence_rows_rerun", line.get("silence_rows_rerun") == 0))
-        if not ok}
-    if bad:
-        raise RuntimeError(f"bench: {bad}\n{lines[-1]}")
-    return {"env": BENCH_ENV, "wall_s": wall, "line": line}
 
 
 # Phase 9. The configuration keys where the JAX package departs from the
@@ -2682,7 +2153,6 @@ def run_config_cells(torch, np, hopper, dbp: str) -> dict:
     dev = torch.device("cuda")
     kinds = ("eager", "capture", "replay")
     cells = []
-    t_phase = time.perf_counter()
     for name, keys in CONFIG_CELLS:
         compiled.release_compiled()
         voice = DeviceVoice(db, device=dev)
@@ -2727,17 +2197,13 @@ def run_config_cells(torch, np, hopper, dbp: str) -> dict:
             for way, (run, eager_run) in ways.items():
                 what = f"{name} {way} at {speed}"
                 seen = set(compiled.signatures())
-                outs, runs, walls, reruns = [], [], [], []
+                outs, runs, reruns = [], [], []
                 widths = set()
                 for _ in kinds:
                     before = dict(compiled.runs)
                     wide = dict(compiled.widened)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
                     outs.append(run())
-                    walls.append(time.perf_counter() - t0)
-                    runs.append({k: compiled.runs[k] - before.get(k, 0)
-                                 for k in kinds})
+                    runs.append(runs_since(before))
                     grew = {w: n - wide.get(w, 0)
                             for w, n in compiled.widened.items()
                             if n > wide.get(w, 0)}
@@ -2775,13 +2241,13 @@ def run_config_cells(torch, np, hopper, dbp: str) -> dict:
                     "setting": name, "speed": speed, "way": way,
                     "oracle_max_abs_diff": worst, "passes_equal_eager": True,
                     "signatures": len(new), "compiled_runs": runs,
-                    "wall_s": walls, "traced_launches": launches,
+                    "traced_launches": launches,
                     "fade_passes": sorted({sig.fades for sig in new}),
                     "rows_rerun": reruns, "table_widths": sorted(widths)})
         bs = twin = voice = None
     compiled.release_compiled()
     return {"texts": CONFIG_TEXTS, "speeds": list(CONFIG_SPEEDS),
-            "cells": cells, "phase_s": time.perf_counter() - t_phase}
+            "cells": cells}
 
 
 LIBRARY_NONE = {
@@ -2856,7 +2322,6 @@ def main() -> int:
         say("config_cells", run_config_cells(
             torch, np, hopper, os.path.join(root, "voice.db")))
     compiled.release_compiled()
-    say("bench", run_bench(np))
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "ctts_tpu."))

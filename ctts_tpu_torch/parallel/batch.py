@@ -58,7 +58,6 @@ around an XLA:CPU crash and has no counterpart.
 from __future__ import annotations
 
 import itertools
-import os
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -163,12 +162,9 @@ class BatchSynthesizer:
         self.device = self.voice.device
         # The wire codec is on where the JAX package turns it on (every
         # accelerator: ctts_tpu/parallel/batch.py:246-252), here a CUDA
-        # device; off on the CPU. CTTS_WIRE=0/1 overrides.
-        if wire is None:
-            env = os.environ.get("CTTS_WIRE", "")
-            wire = (env == "1" if env in ("0", "1")
-                    else self.device.type == "cuda")
-        self.wire = bool(wire)
+        # device; off on the CPU.
+        self.wire = (self.device.type == "cuda" if wire is None
+                     else bool(wire))
         # One voice replica, core and copy stream per distinct device
         # (the replicated voice of ctts_tpu/parallel/batch.py:254-258).
         devices = mesh.devices if mesh is not None else (self.device,)
@@ -378,20 +374,17 @@ class BatchSynthesizer:
         timing.count("buckets")
         timing.count("rows.real", n)
         timing.count("rows.pad", rows * len(self.shards) - n)
-        return Enqueued(n, rows, [
-            self._enqueue_shard(shard, dims, {
-                k: v[d * rows:(d + 1) * rows] for k, v in stacked.items()},
-                shared)
-            for d, shard in enumerate(self.shards)], dims, stacked)
-
-    def _enqueue_shard(self, shard: Shard, dims: PlanDims, arrays: dict,
-                       shared: dict):
-        """The core over one shard's rows, the pack and, with the codec,
-        the encode, all on the shard's device: (payload, classes or None,
-        out_lens, ovf)."""
-        with on_device(shard.device):
-            return self._run_core(shard.core, dims, arrays, shared,
-                                  self.wire)
+        shards = []
+        for d, shard in enumerate(self.shards):
+            arrays = {k: v[d * rows:(d + 1) * rows]
+                      for k, v in stacked.items()}
+            # The core over the shard's rows, the pack and, with the
+            # codec, the encode, all on the shard's device: (payload,
+            # classes or None, out_lens, ovf).
+            with on_device(shard.device):
+                shards.append(self._run_core(shard.core, dims, arrays,
+                                             shared, self.wire))
+        return Enqueued(n, rows, shards, dims, stacked)
 
     def _trim(self, enqueued):
         n_rows, per_bucket = enqueued

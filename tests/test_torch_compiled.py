@@ -22,7 +22,13 @@ shape-static core it captures (synth/device.py), on the CPU.
     and is held to the oracle, at 1.0 and 0.5; on a card its replays
     equal its eager runs (skipped without one);
 (h) BatchSynthesizer.execute(plans) equals synthesize(texts, split=False),
-    and CTTSEngine.close drops the graphs of both its paths.
+    and CTTSEngine.close drops the graphs of both its paths;
+(i) BatchSynthesizer.stream at its default floor over two short texts
+    (0 LSB from the oracle), a paragraph (at 1.0 split at its
+    sentence boundaries, within 32 LSB of the oracle's one buffer; at
+    1.5 one row, within 2 LSB) and batches of two sizes through one
+    stream (within 2 LSB), at 1.0 and 1.5, every length equal to the
+    oracle's and no row run again.
 """
 
 import numpy as np
@@ -487,3 +493,45 @@ def test_one_sentence_replay_equals_eager_on_the_card(db):
             assert got.dtype == want.dtype and np.array_equal(got, want)
     assert compiled.runs["replay"] - before.get("replay", 0) >= 2
     compiled.release_compiled(voice.core())
+
+
+# (batches of one stream, speed, LSB bound against the oracle): two
+# short texts of tests/test_device_executor.py::CASES; a paragraph, at
+# 1.0 split at its sentence boundaries into rows and held to the
+# oracle's one buffer (plan/split.py splits at 1.0 only: at 1.5 it is
+# one row); bench.py's first three texts in batches of 2 (sizes 2, 1).
+PARAGRAPH = "bom dia. tudo bem."
+MIXED = [["como vai?", "que legal!"], ["eu quero café, pão, e manteiga"]]
+STREAMS = {"short_1.0": ([["como vai", "que legal!"]], 1.0, 0),
+           "short_1.5": ([["como vai", "que legal!"]], 1.5, 0),
+           "paragraph_1.0": ([[PARAGRAPH]], 1.0, 32),
+           "paragraph_1.5": ([[PARAGRAPH]], 1.5, 2),
+           "mixed_1.0": (MIXED, 1.0, 2),
+           "mixed_1.5": (MIXED, 1.5, 2)}
+
+
+@pytest.fixture(scope="module")
+def unfloored(db):
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+
+    return BatchSynthesizer(db, config_defaults(), device=CPU)
+
+
+@pytest.mark.parametrize("case", list(STREAMS))
+def test_stream_held_to_the_oracle(db, unfloored, case):
+    from ctts_tpu_torch.synth import compiled
+
+    batches, speed, bound = STREAMS[case]
+    widened = dict(compiled.widened)
+    got = list(unfloored.stream(iter(batches), speed=speed))
+    assert dict(compiled.widened) == widened
+    assert [len(b) for b in got] == [len(b) for b in batches]
+    for texts, outs in zip(batches, got):
+        for t, o in zip(texts, outs):
+            ref = execute_plan_oracle(
+                compile_plan(db, t, config_defaults(), None, speed), db)
+            assert o.dtype == np.int16 and _max_diff(o, ref) <= bound, t
+    if PARAGRAPH in batches[0]:
+        _, spans = unfloored._lower_batch([PARAGRAPH], speed, True)
+        assert spans == [(0, 2 if speed == 1.0 else 1)]
+

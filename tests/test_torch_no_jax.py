@@ -1,9 +1,9 @@
 """ctts_tpu_torch must import on a machine without JAX or ctts_tpu.
 
-A fresh interpreter imports every module of the package (the bench,
-ctts_tpu_torch.bench, among them), chip_smoke.py and the port's tools
-(tools/torch_*.py), and neither jax nor any module of the JAX package
-(ctts_tpu, ctts_tpu.*) may have been loaded by any of them."""
+A fresh interpreter imports every module of the package (the serving
+loop, ctts_tpu_torch.parallel.batch, among them), chip_smoke.py and the
+port's tools (tools/torch_*.py), and neither jax nor any module of the
+JAX package (ctts_tpu, ctts_tpu.*) may have been loaded by any of them."""
 
 import os
 import subprocess
@@ -23,7 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(ctts_tpu_torch.__path__,
                            importlib.machinery.ExtensionFileLoader)]
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
-assert "ctts_tpu_torch.bench" in names
+assert "ctts_tpu_torch.parallel.batch" in names
 assert "ctts_tpu_torch.runtime.native" in names
 assert "ctts_tpu_torch.ops.hopper.silence" in names
 assert "ctts_tpu_torch.ops.hopper.contour" in names

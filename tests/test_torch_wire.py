@@ -11,7 +11,7 @@ branch of its BatchSynthesizer against ctts_tpu, on the CPU.
     it never falls back to another decoder.
 (c) BatchSynthesizer(wire=True) equals wire=False bit for bit through
     synthesize and a 2-batch stream, also when the packed buffer needs
-    the pad; the default is off on the CPU and CTTS_WIRE=0/1 overrides.
+    the pad; the default is off on the CPU and wire=True turns it on.
 """
 
 import jax.numpy as jnp
@@ -151,7 +151,7 @@ def test_wire_serving_pads_packed_buffer(pair, monkeypatch):
         assert np.array_equal(w, g), t
 
 
-def test_wire_default_and_override(voice_db, monkeypatch):
+def test_wire_default_and_override(voice_db):
     from ctts_tpu_torch.config import config_defaults
     from ctts_tpu_torch.db.reader import VoiceDatabase
     from ctts_tpu_torch.parallel.batch import BatchSynthesizer
@@ -159,10 +159,5 @@ def test_wire_default_and_override(voice_db, monkeypatch):
     db = VoiceDatabase(voice_db)
     cfg = config_defaults()
     kw = dict(device=CPU, native_plans=False)
-    monkeypatch.delenv("CTTS_WIRE", raising=False)
-    assert not BatchSynthesizer(db, cfg, **kw).wire
-    monkeypatch.setenv("CTTS_WIRE", "1")
-    assert BatchSynthesizer(db, cfg, **kw).wire
-    monkeypatch.setenv("CTTS_WIRE", "0")
     assert not BatchSynthesizer(db, cfg, **kw).wire
     assert BatchSynthesizer(db, cfg, wire=True, **kw).wire

@@ -51,10 +51,6 @@ is described (which pause, the spin time its CUDA
 events measured, the kernel launches of the run that have no kernel in
 the trace) in "spin_losses", and the profiled batch runs again, at
 most SPIN_RETRIES times.
-It also prints the device idle share of the served 3-batch stream
-without the profiler, 1 - batches x (the graphs' device ms a batch) /
-the stream's wall time (medians of REPEATS streams), beside
-torch.profiler's figure for a 3-batch stream (chip_smoke.stream_idle).
 One JSON line a speed, then the card's name and power limit. Needs one
 CUDA card, and fails without one.
 """
@@ -69,7 +65,6 @@ from contextlib import contextmanager
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-REPEATS = 3
 TOLERANCE = 0.05
 SPIN_CYCLES = 200_000_000   # ~0.1 s at the H100's clock, doubled as needed
 PAUSE_CYCLES = 40_000_000   # ~20 ms, before each stage
@@ -416,8 +411,8 @@ def profiler_totals(cs, torch, run) -> dict:
 
 
 def profile_speed(cs, torch, np, bs, speed: float, reps: int) -> dict:
-    """The stage table of one serving batch at `speed`, its checks, its
-    graphs' device time and the served stream's idle share."""
+    """The stage table of one serving batch at `speed`, its checks and
+    its graphs' device time."""
     core = bs.shards[0].core
     (_, per_bucket), _ = bs._lower_batch(cs.batch_texts(0), speed, True)
     per_bucket.sort(key=lambda b: -b[2][1]["speed"].shape[0])
@@ -444,13 +439,6 @@ def profile_speed(cs, torch, np, bs, speed: float, reps: int) -> dict:
     stages, cycles, lost = eager_stages(cs, torch, np, core, batch, reps)
     prof = profiler_totals(cs, torch, batch)
     g_ms = graph_ms(torch, np, entry, merged, trips, reps)
-
-    # The served stream, timed without the profiler, and its idle share.
-    cs.stream_of(torch, bs, cs.N_BATCHES, speed)            # set-up
-    walls = [cs.stream_of(torch, bs, cs.N_BATCHES, speed)[1]
-             for _ in range(REPEATS)]
-    wall = float(np.median(walls))
-    idle = cs.stream_idle(torch, bs, speed)
     stage_sum = sum(v["ms"] for v in stages.values())
     event_sum = sum(v["event_ms"] for v in stages.values())
     checks = {
@@ -468,12 +456,6 @@ def profile_speed(cs, torch, np, bs, speed: float, reps: int) -> dict:
         stage_sum_over_profiler=stage_sum / prof["device_ms"],
         event_sum_over_profiler=event_sum / prof["device_ms"],
         graph_ms=g_ms, graph_over_eager=g_ms / prof["device_ms"],
-        stream={"batches": cs.N_BATCHES, "wall_s": walls,
-                "idle_share_without_profiler":
-                    1.0 - cs.N_BATCHES * g_ms / (wall * 1e3),
-                "idle_share_profiler": idle.get("idle_share"),
-                "profiler_kernel_ms_per_batch":
-                    idle.get("kernel_ms_per_batch")},
         checks=checks)
 
 
