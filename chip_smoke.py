@@ -179,6 +179,10 @@ LSB_BOUND = 2       # int16 bound against the oracle (tests/test_device_executor
 
 STRETCH_SPEED = 1.5  # bench.py's stretch section
 SYNC_SPEED = 0.5
+# The WSOLA kernels' launch counts (ops/hopper/wsola.py: the emit, and the
+# decide, in a served batch one table launch over every stretch bucket):
+# none at speed 1.0.
+STRETCH_KERNELS = ("wsola_frames", "wsola_decide")
 
 # Kernel shapes of the serving bucket above at batch 128.
 B, U, UBUF, CFMAX = 128, 32, 7168, 1024
@@ -1587,7 +1591,7 @@ def run_slice(torch, np, hopper, root: str):
     res, outputs = {}, {}
     res["1.0"], outputs[1.0] = serve(
         torch, np, hopper, ways, 1.0,
-        [n for n in names if n != "wsola_frames"])
+        [n for n in names if n not in STRETCH_KERNELS])
     say("slice", res["1.0"])
     res["1.5"], outputs[STRETCH_SPEED] = serve(
         torch, np, hopper, ways, STRETCH_SPEED, names)
@@ -1697,7 +1701,7 @@ def run_entry_points(torch, np, hopper, root: str) -> dict:
                 raise RuntimeError(f"cli.main and the subprocess differ "
                                    f"on {text!r}")
             want = [m.KERNEL for m in hopper.MODULES
-                    if m.KERNEL != "wsola_frames" or speed != "1.0"]
+                    if m.KERNEL not in STRETCH_KERNELS or speed != "1.0"]
             missing = [k for k in want if case["launches"][k] <= 0]
             if missing:
                 raise RuntimeError(f"cli synth {text!r}: kernels not "
@@ -2004,7 +2008,8 @@ def run_multi_device(torch, np, hopper, root: str, served,
         ways[key + "_eager"] = eager_twin(make())
     names = [m.KERNEL for m in hopper.MODULES]
     res["1.0"] = split_streams(torch, np, hopper, ways, outputs[1.0], 1.0,
-                               [n for n in names if n != "wsola_frames"])
+                               [n for n in names
+                                if n not in STRETCH_KERNELS])
     say("multi_device_stream", res["1.0"])
     res["1.5"] = split_streams(torch, np, hopper, ways,
                                outputs[STRETCH_SPEED], STRETCH_SPEED, names)
@@ -2331,10 +2336,12 @@ def main() -> int:
     kernels = []
     for mod in hopper.MODULES:
         name = mod.KERNEL
+        if name == "wsola_decide":
+            continue    # on the wsola line (decide_launches)
         # The wsola kernel belongs to the speed-1.5 path; its line
         # carries the speed-1.5 case of phase 4.
         k = kern[name] if name in kern else kern[f"{name} speed_1.5"]
-        path = sl["1.5"] if name == "wsola_frames" else sl["1.0"]
+        path = sl["1.5"] if name in STRETCH_KERNELS else sl["1.0"]
         kernels.append({"name": name, "route": "cuda",
                         "source": mod.SOURCE, "replaces": mod.REPLACES,
                         "launches": path["launches"][name],
@@ -2342,6 +2349,8 @@ def main() -> int:
                         "plain_ms": k["plain_ms"],
                         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"]})
+        if name == "wsola_frames":
+            kernels[-1]["decide_launches"] = path["launches"]["wsola_decide"]
     say("library_none", LIBRARY_NONE)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(env.gpu_name_and_power_limit(), flush=True)

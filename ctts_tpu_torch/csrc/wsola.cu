@@ -47,7 +47,14 @@
 //     index, so a max is the earliest max), and after each barrier every
 //     warp reads the keys (a lane each, two redux.sync max) and takes the
 //     decision itself;
-//   - the OLA is off the chain (emit).
+//   - the OLA is off the chain (emit);
+//   - the chains of different buckets are independent: the table launch
+//     (ctts_wsola_decide_table) runs the rows of every stretch bucket of
+//     a serving batch side by side, so a batch pays the chain's latency
+//     once, not once a bucket. It runs the same per-row body
+//     (decide_row) as the launch of one bucket (ctts_wsola_frames,
+//     ctts_wsola_decide), so each row's positions are the same; the
+//     emit then runs alone per bucket (ctts_wsola_emit).
 // Measured against this design on the card (PERF.md, PR 3): int64 or
 // f64 multiply-adds in place of dp4a, 3 or 17 candidates a warp (22 or
 // 4 warps; with 4, every warp ran the fine search itself and a frame
@@ -208,36 +215,46 @@ __device__ __forceinline__ int dp4a_uu(unsigned a, unsigned b, int c) {
   return static_cast<int>(__dp4a(a, b, static_cast<unsigned>(c)));
 }
 
+// The decide's shared memory: the ring of the row's samples, their
+// energies and byte planes, the prefetch's landing area and the two
+// rounds of candidate keys.
+struct DecideSmem {
+  int ring[kRing];  // first: 16-byte aligned with the struct
+  float ering[kRing];
+  unsigned plane_h[kGroups];
+  unsigned plane_l[kGroups];
+  float stage[kChunk];
+  unsigned long long coarse_key[kDecideWarps];
+  unsigned long long fine_key[kNFine];
+};
+
+// One block's chain: frames k < nr of the row x (energies e, S samples,
+// ic of them input), each frame's chosen input position to out, -1 past
+// nr up to max_steps. Both launches of the decide run it, so a row's
+// decisions are the same whichever launch runs it.
 // kPrefetch = false is the chain's latency floor (a microbenchmark, not
 // on the serving path): the ring is filled once, nothing is fetched
 // during the chain, and every frame searches whatever the ring holds at
 // its indices -- the dependent steps alone.
 template <bool kPrefetch>
-__global__ void __launch_bounds__(kDecideThreads)
-wsola_decide_kernel(const float* __restrict__ inp,
-                    const float* __restrict__ sq,
-                    const int* __restrict__ input_count,
-                    const int* __restrict__ nrun, int* __restrict__ pos,
-                    int S, int max_steps) {
+__device__ __forceinline__ void decide_row(const float* __restrict__ x,
+                                           const float* __restrict__ e,
+                                           int* __restrict__ out, int ic,
+                                           int nr, int S, int max_steps,
+                                           DecideSmem& sm) {
   constexpr int kWinGroups = kSpan / 4 + kPerWarp - 1;  // a lane's window
   constexpr int kFetch0 = 32 * kNFine;  // the first prefetching thread
-  __shared__ __align__(16) int ring[kRing];
-  __shared__ float ering[kRing];
-  __shared__ unsigned plane_h[kGroups];
-  __shared__ unsigned plane_l[kGroups];
-  __shared__ float stage[kChunk];
-  __shared__ unsigned long long coarse_key[kDecideWarps];
-  __shared__ unsigned long long fine_key[kNFine];
+  int* ring = sm.ring;
+  float* ering = sm.ering;
+  unsigned* plane_h = sm.plane_h;
+  unsigned* plane_l = sm.plane_l;
+  float* stage = sm.stage;
+  unsigned long long* coarse_key = sm.coarse_key;
+  unsigned long long* fine_key = sm.fine_key;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int b = blockIdx.x;
-  const float* x = inp + static_cast<size_t>(b) * S;
-  const float* e = sq + static_cast<size_t>(b) * S;
-  int* out = pos + static_cast<size_t>(b) * max_steps;
-  const int ic = min(input_count[b], S);
-  const int nr = nrun[b];
 
   // The 4 samples of input positions p0 .. p0 + 3 (p0 a multiple of 4)
   // into the ring and its byte planes.
@@ -401,6 +418,92 @@ wsola_decide_kernel(const float* __restrict__ inp,
   if (kPrefetch) cp_async_wait_all();
 }
 
+struct Row {
+  const float* x;
+  const float* e;
+  int* out;
+  int ic;
+  int nr;
+  int S;
+  int max_steps;
+};
+
+// The rows of one launch a bucket: block b runs row b of one [B, S]
+// batch.
+struct Batch {
+  const float* inp;
+  const float* sq;
+  const int* input_count;
+  const int* nrun;
+  int* pos;
+  int S;
+  int max_steps;
+
+  __device__ __forceinline__ Row row(int b) const {
+    return {inp + static_cast<size_t>(b) * S, sq + static_cast<size_t>(b) * S,
+            pos + static_cast<size_t>(b) * max_steps, min(input_count[b], S),
+            nrun[b], S, max_steps};
+  }
+};
+
+}  // namespace
+
+// One bucket's batch in a table launch (the layout of ops/hopper/wsola.py
+// _Segment): `rows` rows of S samples, max_steps frame slots each.
+struct WsolaSegment {
+  const float* inp;
+  const float* sq;
+  const int* input_count;
+  const int* nrun;
+  int* pos;
+  int rows;
+  int S;
+  int max_steps;
+};
+
+namespace {
+
+constexpr int kMaxSegments = 32;
+
+// The rows of a table launch: every row of up to kMaxSegments segments,
+// passed by value in the kernel's parameter space (nothing to upload).
+// Block b runs row b - first[i] of the last segment i with first[i] <= b.
+// The segment is picked with constant indices only, so every field is
+// read from the parameter space as it stands (a dynamic index would copy
+// the table to local memory first).
+struct Table {
+  WsolaSegment seg[kMaxSegments];
+  int first[kMaxSegments];  // grid row of each segment's row 0, ascending
+  int n;
+
+  __device__ __forceinline__ Row row(int b) const {
+    int i = 0;
+#pragma unroll
+    for (int j = 1; j < kMaxSegments; ++j) i += (j < n && b >= first[j]);
+    Batch s{};
+    int r = 0;
+#pragma unroll
+    for (int j = 0; j < kMaxSegments; ++j) {
+      if (j == i) {
+        s = {seg[j].inp, seg[j].sq, seg[j].input_count, seg[j].nrun,
+             seg[j].pos, seg[j].S, seg[j].max_steps};
+        r = b - first[j];
+      }
+    }
+    return s.row(r);
+  }
+};
+
+// One block a row of `rows` (Batch: one bucket; Table: every bucket of a
+// batch, each row's chain as in its own bucket's launch).
+template <bool kPrefetch, class Rows>
+__global__ void __launch_bounds__(kDecideThreads)
+wsola_decide_kernel(const Rows rows) {
+  __shared__ __align__(16) DecideSmem sm;
+  const Row r = rows.row(blockIdx.x);
+  decide_row<kPrefetch>(r.x, r.e, r.out, r.ic, r.nr, r.S, r.max_steps, sm);
+}
+
 // One thread per output sample p of row b: the frames k < nrun with
 // k * hop <= p < k * hop + 512, in ascending k from 0.0f.
 __global__ void __launch_bounds__(kEmitThreads)
@@ -432,13 +535,22 @@ int decide(const float* inp, const float* sq, const int* ic, const int* nrun,
            int* pos, int B, int S, int max_steps, int prefetch,
            cudaStream_t stream) {
   if (B <= 0) return 0;
+  const Batch rows{inp, sq, ic, nrun, pos, S, max_steps};
   if (prefetch) {
-    wsola_decide_kernel<true><<<B, kDecideThreads, 0, stream>>>(
-        inp, sq, ic, nrun, pos, S, max_steps);
+    wsola_decide_kernel<true><<<B, kDecideThreads, 0, stream>>>(rows);
   } else {
-    wsola_decide_kernel<false><<<B, kDecideThreads, 0, stream>>>(
-        inp, sq, ic, nrun, pos, S, max_steps);
+    wsola_decide_kernel<false><<<B, kDecideThreads, 0, stream>>>(rows);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int emit(const float* inp, const int* pos, const int* nrun,
+         const float* window, float* acc, float* norm, int B, int S, int hop,
+         int out_size, int max_steps, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  const dim3 grid((out_size + kEmitThreads - 1) / kEmitThreads, B);
+  wsola_emit_kernel<<<grid, kEmitThreads, 0, stream>>>(
+      inp, pos, nrun, window, acc, norm, S, hop, out_size, max_steps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -455,11 +567,9 @@ extern "C" int ctts_wsola_frames(const float* inp, const float* sq,
                                  cudaStream_t stream) {
   const int rc =
       decide(inp, sq, input_count, nrun, pos, B, S, max_steps, 1, stream);
-  if (rc != 0 || B <= 0) return rc;
-  const dim3 grid((out_size + kEmitThreads - 1) / kEmitThreads, B);
-  wsola_emit_kernel<<<grid, kEmitThreads, 0, stream>>>(
-      inp, pos, nrun, window, acc, norm, S, hop, out_size, max_steps);
-  return static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  return emit(inp, pos, nrun, window, acc, norm, B, S, hop, out_size,
+              max_steps, stream);
 }
 
 // The decide launch alone -> pos [B, max_steps] i32; prefetch = 0 is the
@@ -470,4 +580,37 @@ extern "C" int ctts_wsola_decide(const float* inp, const float* sq,
                                  int prefetch, cudaStream_t stream) {
   return decide(inp, sq, input_count, nrun, pos, B, S, max_steps, prefetch,
                 stream);
+}
+
+// The decide of n <= kMaxSegments buckets in one launch: a block a row of
+// every segment, in segment order; each segment's pos as its own
+// ctts_wsola_decide (prefetch on) writes it. The segments are copied into
+// the launch's parameters, so `segs` may be freed once this returns.
+extern "C" int ctts_wsola_decide_table(const WsolaSegment* segs, int n,
+                                       cudaStream_t stream) {
+  if (n < 0 || n > kMaxSegments) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Table t{};
+  int grid = 0;
+  for (int i = 0; i < n; ++i) {
+    t.seg[i] = segs[i];
+    t.first[i] = grid;
+    grid += segs[i].rows;
+  }
+  t.n = n;
+  if (grid <= 0) return 0;
+  wsola_decide_kernel<true><<<grid, kDecideThreads, 0, stream>>>(t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The overlap-add alone, from the positions a decide launch chose: acc,
+// norm [B, out_size] f32 as ctts_wsola_frames writes them.
+extern "C" int ctts_wsola_emit(const float* inp, const int* pos,
+                               const int* nrun, const float* window,
+                               float* acc, float* norm, int B, int S, int hop,
+                               int out_size, int max_steps,
+                               cudaStream_t stream) {
+  return emit(inp, pos, nrun, window, acc, norm, B, S, hop, out_size,
+              max_steps, stream);
 }

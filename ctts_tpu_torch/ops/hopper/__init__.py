@@ -12,7 +12,9 @@ CUDA kernel for a CUDA tensor, the plain PyTorch version for a CPU
 tensor), the plain version itself or its import, a launch counter that
 only a kernel launch increments, and GLOBALS, the __global__ functions
 a launch runs; MODULES lists, per kernel, what holds these (units holds
-one such record a kernel). Under
+one such record a kernel; wsola's module counts the emit, its
+decide_kernel the decide, which the serving loop launches once a batch
+over every stretch bucket). Under
 CUDA graph capture a launch is recorded, not run: recorded_launches
 takes such counts back, and each replay of the graph adds them
 (synth/compiled.py); chip_smoke.py holds the counts to the GLOBALS a
@@ -37,8 +39,8 @@ from ctts_tpu_torch.ops.hopper import (
 )
 
 MODULES = (pitch, compose, silence, compact, contour, region_post,
-           assemble, wsola, pack_encode, units.base_kernel,
-           units.contrib_kernel)
+           assemble, wsola, wsola.decide_kernel, pack_encode,
+           units.base_kernel, units.contrib_kernel)
 
 
 def reset_launches() -> None:

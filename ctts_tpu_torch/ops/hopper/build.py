@@ -49,6 +49,8 @@ SIGNATURES = {
     "ctts_wsola_frames": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P],
     "ctts_wsola_decide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ctts_wsola_decide_table": [_P, _I, _P],
+    "ctts_wsola_emit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ctts_pack_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "ctts_unit_base": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
@@ -57,6 +59,20 @@ SIGNATURES = {
     "ctts_empty": [_P],
     "ctts_current_device": [ctypes.POINTER(_I)],
 }
+
+
+class Kernel:
+    """One kernel as ops/hopper lists it, where a module holds more than
+    one: its name, source, the function it replaces, its __global__
+    functions and its launch count (only a launch increments it)."""
+
+    def __init__(self, kernel: str, source: str, replaces: str,
+                 globals_: tuple):
+        self.KERNEL = kernel
+        self.SOURCE = source
+        self.REPLACES = replaces
+        self.GLOBALS = globals_
+        self.launches = 0
 
 
 class BuildInfo:

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ctts_tpu_torch.ops.hopper.build import check, launch
+from ctts_tpu_torch.ops.hopper.build import Kernel, check, launch
 from ctts_tpu_torch.ops.luts import (
     fade_in_gain,
     fade_in_table,
@@ -39,23 +39,10 @@ SOURCE = "ctts_tpu_torch/csrc/units.cu"
 F32 = torch.float32
 
 
-class Kernel:
-    """One kernel of this module as ops/hopper lists it: its name, the
-    function it replaces, its __global__ functions and its launch
-    count (only a launch increments it)."""
-
-    SOURCE = SOURCE
-
-    def __init__(self, kernel: str, replaces: str, globals_: tuple):
-        self.KERNEL = kernel
-        self.REPLACES = replaces
-        self.GLOBALS = globals_
-        self.launches = 0
-
-
-base_kernel = Kernel("unit_base", "ctts_tpu/synth/device.py:761",
+base_kernel = Kernel("unit_base", SOURCE, "ctts_tpu/synth/device.py:761",
                      ("unit_base_kernel",))
-contrib_kernel = Kernel("unit_contrib", "ctts_tpu/synth/device.py:887",
+contrib_kernel = Kernel("unit_contrib", SOURCE,
+                        "ctts_tpu/synth/device.py:887",
                         ("unit_contrib_kernel",))
 
 

@@ -46,22 +46,26 @@ def synthesis_hop_for_speed(speed: float) -> int:
     return max(int(np.float32(AHOP) / s), 1)
 
 
-def sliding_sumsq(x: torch.Tensor, width: int) -> torch.Tensor:
+def sliding_sumsq(x: torch.Tensor, width: int,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Exact sliding-window energy of int16-valued rows x [B, N]:
     out[:, p] = f32(Σ_{i<width} x[:, p+i]²) for p = 0..N-width
     (ctts_tpu/ops/wsola_jax.py:57 _sliding_sumsq). The int64 cumsum is
     exact (N·2^30 < 2^63) and each window sum (< 2^39 < 2^53) is
-    rounded to f32 once."""
+    rounded to f32 once (into `out` where given)."""
     xi = x.to(torch.int64)
     cs = F.pad(torch.cumsum(xi * xi, dim=1), (1, 0))
-    return (cs[:, width:] - cs[:, :-width]).to(F32)
+    sums = cs[:, width:] - cs[:, :-width]
+    return sums.to(F32) if out is None else out.copy_(sums)
 
 
-def energy_table(inp: torch.Tensor) -> torch.Tensor:
+def energy_table(inp: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """sq [B, S]: sq[:, p] = energy of the OVERLAP-sample window at
     input position p (zeros past the row's end) — the frame chain's
-    sq1 (candidate) and sq2 (previous tail) lookups."""
-    return sliding_sumsq(F.pad(inp, (0, OVERLAP - 1)), OVERLAP)
+    sq1 (candidate) and sq2 (previous tail) lookups (written to `out`
+    where given)."""
+    return sliding_sumsq(F.pad(inp, (0, OVERLAP - 1)), OVERLAP, out)
 
 
 def max_steps_for(S: int, out_size: int, hop: int) -> int:
@@ -107,38 +111,46 @@ def _corr(cands, tail, sq1, sq2):
 def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
                        out_size: int, searched: dict | None = None,
                        choices: dict | None = None):
-    """The WSOLA frame chain, plain PyTorch, batched over sentences.
+    """The WSOLA frame chain, plain PyTorch, batched over sentences:
+    decide_plain's positions, then emit_plain's overlap-add.
 
     inp [B, S] f32 int16-valued, sq = energy_table(inp), input_count
-    and nrun [B] i32. For k < nrun[b], in frame order (what
+    and nrun [B] i32. Returns the OLA accumulators (acc, norm)
+    [B, out_size] f32: acc holds exact integer sums awaiting one
+    wrap16. A `searched` dict receives the number of valid coarse and
+    fine candidates the frames that run evaluate (the work these inputs
+    need), and a `choices` dict receives pos [B, max_steps_for(S,
+    out_size, hop)] i32, each frame's chosen input position (-1 for the
+    frames that do not run)."""
+    pos = decide_plain(inp, sq, input_count, nrun,
+                       max_steps_for(inp.shape[1], out_size, hop), searched)
+    if choices is not None:
+        choices["pos"] = pos
+    return emit_plain(inp, pos, nrun, hop, out_size)
+
+
+def decide_plain(inp, sq, input_count, nrun, max_steps: int,
+                 searched: dict | None = None):
+    """The frame chain's decisions, plain PyTorch: pos [B, max_steps]
+    i32, each frame's chosen input position (-1 for the frames past
+    nrun). For k < nrun[b], in frame order (what
     ctts_tpu/ops/pallas/wsola.py:210-317, 373-399 computes): the tail
     is the OVERLAP samples at the previous chosen position + AHOP; the
     coarse search takes the earliest max of the normalized correlation
     over offsets -128..128 step 4 (invalid candidates -inf; none valid
     → offset 0, best -2); the fine search tries ±1..3 around it and
     moves only on a strict improvement; offset 0 at k = 0; the frame is
-    clamped into [0, input_count-FRAME], Hann-windowed and truncated,
-    and added to acc (and the window to norm) at k·hop.
-    Returns the OLA accumulators (acc, norm) [B, out_size] f32: acc
-    holds exact integer sums awaiting one wrap16. A `searched` dict
-    receives the number of valid coarse and fine candidates the frames
-    that run evaluate (the work these inputs need), and a `choices` dict
-    receives pos [B, max_steps_for(S, out_size, hop)] i32, each frame's
-    chosen input position (-1 for the frames that do not run)."""
+    clamped into [0, input_count-FRAME]. `searched` as in
+    wsola_frames_plain."""
     B, S = inp.shape
     dev = inp.device
-    acc = torch.zeros(B, out_size, dtype=F32, device=dev)
-    norm = torch.zeros(B, out_size, dtype=F32, device=dev)
-    if choices is not None:
-        choices["pos"] = torch.full((B, max_steps_for(S, out_size, hop)), -1,
-                                    dtype=torch.int32, device=dev)
+    pos = torch.full((B, max_steps), -1, dtype=torch.int32, device=dev)
     K = int(nrun.max()) if B else 0
     n_c = n_f = 0
     if K <= 0:
         if searched is not None:
             searched.update(coarse=0, fine=0)
-        return acc, norm
-    window = hann(FRAME, dev)
+        return pos
     # Padded coordinates: padded position p is input position
     # p - MAX_SHIFT, so step k's window is xp[:, k*AHOP : k*AHOP + WIN]
     # and its index j is offset j - MAX_SHIFT from the nominal position.
@@ -146,7 +158,6 @@ def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
     sqp = F.pad(sq, (MAX_SHIFT, FRAME + MAX_SHIFT))
     ic = torch.clamp(input_count.to(torch.int64), max=S)[:, None]
     i_ov = torch.arange(OVERLAP, device=dev)
-    i_fr = torch.arange(FRAME, device=dev)
     j_c = torch.arange(NCOARSE, device=dev) * 4
     rel = torch.tensor(FINE_REL, device=dev)
     qo = torch.full((B,), MAX_SHIFT, dtype=torch.int64, device=dev)
@@ -189,18 +200,38 @@ def wsola_frames_plain(inp, sq, input_count, nrun, hop: int,
                              actual)
         new_qo = torch.clamp(actual, min=0) - nominal + MAX_SHIFT
         new_qo = torch.clamp(new_qo, 0, 2 * MAX_SHIFT)  # rows past nrun
-        frame = win.gather(1, new_qo[:, None] + i_fr).to(F32)
+        run = k < nrun
+        pos[:, k] = torch.where(run, torch.clamp(actual, min=0),
+                                -1).to(torch.int32)
+        qo = torch.where(run, new_qo, qo)
+    if searched is not None:
+        searched.update(coarse=int(n_c), fine=int(n_f))
+    return pos
+
+
+def emit_plain(inp, pos, nrun, hop: int, out_size: int):
+    """The overlap-add from the chosen positions pos [B, max_steps] i32
+    (decide_plain's): frame k < nrun of row b is inp[b, pos[b, k]:][:
+    FRAME], Hann-windowed and truncated, added to acc (and the window to
+    norm) at k·hop, frames in ascending k from 0.0 — the add sequence of
+    the emit kernel. Returns (acc, norm) [B, out_size] f32."""
+    B = inp.shape[0]
+    dev = inp.device
+    acc = torch.zeros(B, out_size, dtype=F32, device=dev)
+    norm = torch.zeros(B, out_size, dtype=F32, device=dev)
+    K = int(nrun.max()) if B else 0
+    if K <= 0:
+        return acc, norm
+    window = hann(FRAME, dev)
+    i_fr = torch.arange(FRAME, device=dev)
+    for k in range(K):
         run = (k < nrun)[:, None]
-        if choices is not None:
-            choices["pos"][:, k] = torch.where(
-                run[:, 0], torch.clamp(actual, min=0), -1).to(torch.int32)
+        start = torch.clamp(pos[:, k].to(torch.int64), min=0)
+        frame = torch.trunc(inp.gather(1, start[:, None] + i_fr))
         at = slice(k * hop, k * hop + FRAME)
         acc[:, at] = acc[:, at] + torch.where(run, trunc16(frame * window),
                                               0.0)
         norm[:, at] = norm[:, at] + torch.where(run, window, 0.0)
-        qo = torch.where(run[:, 0], new_qo, qo)
-    if searched is not None:
-        searched.update(coarse=int(n_c), fine=int(n_f))
     return acc, norm
 
 

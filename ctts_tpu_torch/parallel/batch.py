@@ -50,7 +50,10 @@ batch run eagerly, its second captured, and every later one replayed,
 the outputs copied out of the graphs' memory right after the replay, so
 that the next batch's replay cannot overwrite a payload the copy stream
 is still reading; on the CPU the same core eagerly. Shards on one device share its core and so its
-graphs. `release_compiled` (synth/compiled.py) drops the graphs, as the
+graphs. A stretching bucket (speed != 1.0) stops before its WSOLA frame
+chain's decide; once the batch's buckets are enqueued, one decide launch
+a device makes the decisions of all of them and each bucket finishes
+(compiled.Pending), so the batch pays the chain's latency once. `release_compiled` (synth/compiled.py) drops the graphs, as the
 JAX module's drops its executables; its `_no_persistent_cache` works
 around an XLA:CPU crash and has no counterpart.
 """
@@ -362,11 +365,23 @@ class BatchSynthesizer:
     # -- device side ---------------------------------------------------------
 
     def _enqueue(self, prepared):
+        """Enqueue every bucket. A stretching bucket's run stops before
+        its frame chain's decide (compiled.Pending); once every bucket
+        is enqueued, one decide launch a device makes the decisions of
+        all of them, and each finishes (the chains run side by side, so
+        the batch pays one chain's latency, not one a bucket)."""
         n_rows, per_bucket = prepared
-        return n_rows, [(idxs, self._enqueue_bucket(bd, prep))
-                        for bd, idxs, prep in per_bucket]
+        pending = compiled.Pending()
+        handles = [(idxs, self._enqueue_bucket(bd, prep, pending))
+                   for bd, idxs, prep in per_bucket]
+        pending.flush()
+        return n_rows, [
+            (idxs, h._replace(shards=[compiled.resolved(s)
+                                      for s in h.shards]))
+            for idxs, h in handles]
 
-    def _enqueue_bucket(self, dims: PlanDims, prep) -> Enqueued:
+    def _enqueue_bucket(self, dims: PlanDims, prep,
+                        pending: "compiled.Pending") -> Enqueued:
         """Enqueue each shard's block of slots on its device, in mesh
         order."""
         n, stacked, shared = prep
@@ -374,16 +389,22 @@ class BatchSynthesizer:
         timing.count("buckets")
         timing.count("rows.real", n)
         timing.count("rows.pad", rows * len(self.shards) - n)
-        shards = []
+        shards, batched = [], 0
         for d, shard in enumerate(self.shards):
             arrays = {k: v[d * rows:(d + 1) * rows]
                       for k, v in stacked.items()}
             # The core over the shard's rows, the pack and, with the
             # codec, the encode, all on the shard's device: (payload,
-            # classes or None, out_lens, ovf).
+            # classes or None, out_lens, ovf), or a Deferred of them.
             with on_device(shard.device):
-                shards.append(self._run_core(shard.core, dims, arrays,
-                                             shared, self.wire))
+                out = self._run_core(shard.core, dims, arrays, shared,
+                                     self.wire, pending=pending)
+            if isinstance(out, compiled.Deferred):
+                batched += max(min(n - d * rows, rows), 0)
+            shards.append(out)
+        if dims.stretch:
+            timing.count("stretch.rows", n)
+            timing.count("stretch.batched", batched)
         return Enqueued(n, rows, shards, dims, stacked)
 
     def _trim(self, enqueued):

@@ -304,6 +304,18 @@ class SynthesisCore(nn.Module):
         regions with more kept segments than that (the row's audio is
         then not the reference's, and the caller runs it again at
         plan_arrays.seg_width)."""
+        out, out_len, ovf = self.assembled(dims, st, fades, nblk)
+        if dims.stretch:
+            out, out_len = time_stretch(out, out_len, st["ar"]["speed"],
+                                        dims.OMAX, dims.synth_hop)
+        return out.to(torch.int16), out_len.to(torch.int32), ovf
+
+    @torch.no_grad()
+    def assembled(self, dims: PlanDims, st: dict, fades: int = 0,
+                  nblk: int = dops.NBLK):
+        """The epilogue up to WSOLA: the assembled sentences (out
+        [B, SMAX] f32, out_len, ovf), which a stretching bucket's frame
+        chain takes as its input."""
         ar = st["ar"]
         bufs, _, _ = self._compose(dims, ar, self._contrib(dims, st),
                                    st["fo"], False)
@@ -323,10 +335,7 @@ class SynthesisCore(nn.Module):
         if fades:
             out = self._fades_before_regions(dims, ar, out, comp_lens,
                                              offsets)
-        if dims.stretch:
-            out, out_len = time_stretch(out, out_len, ar["speed"], dims.OMAX,
-                                        dims.synth_hop)
-        return out.to(torch.int16), out_len.to(torch.int32), ovf
+        return out, out_len, ovf
 
     # -- head pitch (device.py:1054-1084) ----------------------------------
 

@@ -350,9 +350,9 @@ def test_served_path_runs_the_compiled_core(db, served, monkeypatch):
     calls = []
     run = compiled.run_batch
 
-    def counted(*args):
+    def counted(*args, **kwargs):
         calls.append(args[1])
-        return run(*args)
+        return run(*args, **kwargs)
 
     assert BatchSynthesizer._run_core is compiled.run_batch
     monkeypatch.setattr(BatchSynthesizer, "_run_core",
