@@ -18,6 +18,11 @@
 // and a scalar path with the loop of the runtime's ctn_wire_decode.
 // Both give the same bits. Each is exported by name; ctw_decode_rows
 // calls the chosen one.
+//
+// Without the codec a shard's host buffer holds the rows' int16 samples
+// back to back; ctw_copy_rows copies every such shard's rows of a batch
+// to their addresses in one call, over the same shard, row-end and
+// address tables.
 
 #include <immintrin.h>
 
@@ -34,6 +39,7 @@ constexpr int64_t kBadClass = -1;   // a class outside 1..5
 constexpr int64_t kFewWords = -2;   // the classes need more words
 constexpr int64_t kBadEnds = -3;    // row ends negative or decreasing
 constexpr int64_t kNoPath = -4;     // the CPU lacks the path's features
+constexpr int64_t kFewSamples = -5; // the row ends pass the samples
 
 // Decodes one block of c planes at w into out[0, 512), carrying the
 // running first delta (state[0]) and sample (state[1]) across blocks.
@@ -307,6 +313,35 @@ int64_t ctw_decode_rows(int64_t nshards, const uint32_t* const* words,
                         const int64_t* ends, int16_t* const* outs) {
   return walk(kVector ? block_avx2 : block_scalar, nshards, words, nwords,
               classes, nclasses, row_off, ends, outs);
+}
+
+// Codec off. Shard s: samples[s] (nsamples[s] int16), and its rows
+// row_off[s] .. row_off[s + 1] - 1 of ends and outs, as in
+// ctw_decode_rows. Checks each shard's row ends against its samples,
+// then copies each row to its output (a null output skips the row).
+// Returns the samples written, or an error code.
+int64_t ctw_copy_rows(int64_t nshards, const int16_t* const* samples,
+                      const int64_t* nsamples, const int64_t* row_off,
+                      const int64_t* ends, int16_t* const* outs) {
+  int64_t written = 0;
+  for (int64_t s = 0; s < nshards; ++s) {
+    const int64_t r0 = row_off[s], r1 = row_off[s + 1];
+    if (r1 <= r0) continue;
+    const int64_t* e = ends + r0;
+    int16_t* const* o = outs + r0;
+    const int64_t nrows = r1 - r0;
+    for (int64_t r = 0; r < nrows; ++r)
+      if (e[r] < (r ? e[r - 1] : 0)) return kBadEnds;
+    if (e[nrows - 1] > nsamples[s]) return kFewSamples;
+    for (int64_t r = 0; r < nrows; ++r) {
+      const int64_t start = r ? e[r - 1] : 0;
+      if (o[r] == nullptr) continue;
+      std::memcpy(o[r], samples[s] + start,
+                  static_cast<size_t>(e[r] - start) * sizeof(int16_t));
+      written += e[r] - start;
+    }
+  }
+  return written;
 }
 
 // The name of the path ctw_decode_rows takes: "avx2" or "scalar".

@@ -13,7 +13,9 @@ failed build raises, and nothing falls back to another decoder.
 The bits are `decode_np`'s (and `decode_host`'s): tests/
 test_torch_wire_rows.py holds both paths to them. The serving drain
 (parallel/batch.py `_drain`) gives each row the address of its place in
-its text's array.
+its text's array. Without the codec the drain's shards hold the rows'
+int16 samples back to back, and `copy_rows` copies every shard's rows
+to their addresses in one native call over the same tables.
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ PATHS = ("avx2", "scalar")
 
 _P = ctypes.c_void_p
 _ARGS = [ctypes.c_int64, _P, _P, _P, _P, _P, _P, _P]
+_COPY_ARGS = [ctypes.c_int64, _P, _P, _P, _P, _P]
 _ERRORS = {-1: "a class outside 1..5",
            -2: "too few words or classes for the rows",
            -3: "row ends negative or decreasing",
-           -4: "the CPU lacks the path's instructions"}
+           -4: "the CPU lacks the path's instructions",
+           -5: "too few samples for the rows"}
 
 _lock = threading.Lock()
 _lib = None
@@ -52,6 +56,8 @@ def _load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = _ARGS
                 fn.restype = ctypes.c_int64
+            lib.ctw_copy_rows.argtypes = _COPY_ARGS
+            lib.ctw_copy_rows.restype = ctypes.c_int64
             lib.ctw_path.argtypes = []
             lib.ctw_path.restype = ctypes.c_char_p
             _lib = lib
@@ -110,4 +116,42 @@ def decode_rows(shards, which: str | None = None) -> int:
     got = fn(len(words), *(a.ctypes.data for a in args))
     if got < 0:
         raise ValueError(f"ctw_decode_rows: {_ERRORS.get(got, got)}")
+    return int(got)
+
+
+def copy_rows(shards) -> int:
+    """Copy every codec-off shard of `shards` into its rows in one native
+    call; returns the samples written.
+
+    A shard is (samples int16, ends int64 [rows], addresses [rows]): the
+    shard's rows back to back from 0 in `samples`, `ends` and
+    `addresses` as in `decode_rows` (0 skips a row). Raises ValueError,
+    as `decode_rows` does, on addresses that do not match the ends, on
+    too few samples for the row ends and on row ends negative or
+    decreasing."""
+    samples, ends, addrs, row_off = [], [], [], [0]
+    for x, e, a in shards:
+        e = np.ascontiguousarray(e, np.int64)
+        a = np.ascontiguousarray(a, np.uint64)
+        if a.shape != e.shape:
+            raise ValueError(f"copy_rows: {a.shape[0]} addresses for "
+                             f"{e.shape[0]} row ends")
+        total = int(e[-1]) if e.shape[0] else 0
+        x = np.ascontiguousarray(x, np.int16)
+        if x.shape[0] < total:
+            raise ValueError(f"copy_rows: {x.shape[0]} samples for row "
+                             f"ends up to {total}")
+        samples.append(x)
+        ends.append(e)
+        addrs.append(a)
+        row_off.append(row_off[-1] + e.shape[0])
+    cat = (lambda xs, t: np.concatenate(xs) if xs else np.zeros(0, t))
+    args = [np.array([x.ctypes.data for x in samples], np.uint64),
+            np.array([x.shape[0] for x in samples], np.int64),
+            np.array(row_off, np.int64), cat(ends, np.int64),
+            cat(addrs, np.uint64)]
+    got = _load().ctw_copy_rows(len(samples),
+                                *(a.ctypes.data for a in args))
+    if got < 0:
+        raise ValueError(f"ctw_copy_rows: {_ERRORS.get(got, got)}")
     return int(got)

@@ -12,7 +12,8 @@ packed samples are encoded on the device (on a card one pack_encode
 launch writes the words straight from the rows) and the host copies the
 valid word prefix; on the drain thread one native pass a batch
 (ops/wire_rows.py) decodes every shard's words straight into the rows'
-own arrays; the samples are the same bit for bit.
+own arrays; the samples are the same bit for bit. Without the codec the
+same pass copies every shard's rows out of its packed samples.
 
 Every speed is served (WSOLA for speed != 1.0, with OMAX-wide rows).
 
@@ -492,14 +493,15 @@ class BatchSynthesizer:
         ids (None: one a row), in order. Walk each bucket's shards in
         order, mapping slots back to row ids, and wait for each shard's
         copy; then give every text an array of its own, each of its rows
-        the range of that array it fills, and write the rows there: with
-        the codec, one native pass decodes every wired shard of the batch
-        straight into them (ops/wire_rows.py); without it, each row is
-        copied out of its shard's buffer; a row that ran again takes that
-        run's output."""
+        the range of that array it fills, and write the rows there in
+        one native pass a batch (ops/wire_rows.py), with the GIL
+        released: with the codec it decodes every wired shard straight
+        into them (`drain.decode`); without it, it copies every shard's
+        rows out of its host buffer (`drain.raw`). A row that ran again
+        takes that run's output (`drain.rows`)."""
         n_rows, per_bucket = trimmed
         lens = [0] * (n_rows + 1)   # row id + 1 -> samples
-        wired, copied = [], []      # (host, classes, ends, ids); (id, src)
+        native, copied = [], []     # (host, classes, ends, ids); (id, src)
         for idxs, (shards, wide) in per_bucket:
             slot = 0
             for host, done, classes, ends in shards:
@@ -518,38 +520,43 @@ class BatchSynthesizer:
                     if slot in wide:
                         copied.append((row, wide[slot]))
                         lens[row + 1] = wide[slot].shape[0]
-                        row = n_rows            # address 0: not decoded
+                        row = n_rows            # address 0: not written
                     else:
-                        if classes is None:
-                            copied.append((row, host[start:end]))
                         lens[row + 1] = end - start
                     ids.append(row)
                     start = end
                     slot += 1
-                if classes is not None:
-                    wired.append((host, classes, ends, ids))
+                native.append((host, classes, ends, ids))
         if spans is None:
             spans = [(i, i + 1) for i in range(n_rows)]
         offs = np.cumsum(lens)
         first = offs[[s for s, _ in spans]]
         count = [e - s for s, e in spans]
-        with timing.span("drain.decode" if wired else "drain.rows"):
+        wired = any(classes is not None for _, classes, _, _ in native)
+        with timing.span("drain.decode" if wired else "drain.raw"):
             outs = [np.empty(n, np.int16) for n in
                     (offs[[e for _, e in spans]] - first).tolist()]
+            # Each row's address: its text's array, at the row's offset
+            # in the text.
+            addr = np.zeros(n_rows + 1, np.int64)
+            addr[:n_rows] = np.repeat(
+                [o.__array_interface__["data"][0] for o in outs],
+                count) + 2 * (offs[:n_rows] - np.repeat(first, count))
             if wired:
-                # Each row's address: its text's array, at the row's
-                # offset in the text.
-                addr = np.zeros(n_rows + 1, np.int64)
-                addr[:n_rows] = np.repeat(
-                    [o.__array_interface__["data"][0] for o in outs],
-                    count) + 2 * (offs[:n_rows] - np.repeat(first, count))
                 n = wire_rows.decode_rows([
                     (host, classes, ends, addr[ids])
-                    for host, classes, ends, ids in wired])
+                    for host, classes, ends, ids in native])
+            else:
+                n = wire_rows.copy_rows([(host, ends, addr[ids])
+                                         for host, _, ends, ids in native])
         if wired:
             timing.count("decode.samples", n)
             timing.count("decode.vector", 0 if wire_rows.path() == "scalar"
                          else n)
+        else:
+            timing.count("raw.samples",
+                         n + sum(src.shape[0] for _, src in copied))
+            timing.count("raw.native", n)
         with timing.span("drain.rows"):
             text = np.repeat(np.arange(len(spans)), count)
             for row, src in copied:

@@ -13,7 +13,15 @@ ops/wire_rows.cpp) on the CPU.
 (c) BatchSynthesizer with the codec equals it without, through
     synthesize and stream, on one shard and on a two-shard mesh: equal
     rows, each owning its data; the drain's spans and the decode
-    counters are recorded.
+    counters are recorded;
+(d) copy_rows, the codec-off pass, writes what a NumPy slice copy
+    writes: several shards, rows of length 0, skipped rows; too few
+    samples, addresses that do not match the ends and decreasing ends
+    raise ValueError;
+(e) BatchSynthesizer without the codec, texts split into several rows
+    and a row run again (_widen), gives the rows a plain Python copy of
+    each row gives, bit for bit, and the oracle's samples within 2 LSB;
+    the pass's span and counters are recorded.
 """
 
 import numpy as np
@@ -230,3 +238,146 @@ def test_serving_with_codec_equals_without(db, shards):
     assert marks["decode.samples"] == samples
     vector = samples if wire_rows.path() != "scalar" else 0
     assert marks["decode.vector"] == vector
+
+
+def _raw_case(name):
+    """[(samples, ends, skipped row indices)] of one copy_rows call."""
+    rng = np.random.default_rng(RAW_CASES.index(name) + 50)
+    if name == "one_shard":
+        return [(rng.integers(-32768, 32768, 5000, dtype=np.int16),
+                 _ends(4990, 17, rng), set())]
+    if name == "empty_rows":
+        return [(rng.integers(-32768, 32768, 900, dtype=np.int16),
+                 np.array([0, 0, 300, 300, 300, 899, 899], np.int64),
+                 set())]
+    if name == "skipped_rows":
+        return [(rng.integers(-32768, 32768, 7000, dtype=np.int16),
+                 _ends(7000, 128, rng), set(range(0, 128, 3)))]
+    if name == "three_shards":
+        return [(rng.integers(-32768, 32768, n, dtype=np.int16),
+                 _ends(n - extra, rows, rng), skip)
+                for n, extra, rows, skip in ((3000, 0, 9, {4}),
+                                             (0, 0, 2, set()),
+                                             (1200, 37, 30, {0, 29}))]
+    raise KeyError(name)
+
+
+RAW_CASES = ["one_shard", "empty_rows", "skipped_rows", "three_shards"]
+
+
+@pytest.mark.parametrize("name", RAW_CASES)
+def test_copy_rows_equals_numpy_slices(name):
+    """Every row's array holds its range of its shard's samples, as a
+    NumPy slice copy gives it; a skipped row (address 0) is left alone
+    and not counted."""
+    shards, checks, want_total = [], [], 0
+    for x, ends, skip in _raw_case(name):
+        starts = np.concatenate([[0], ends[:-1]]).astype(np.int64)
+        rows = [np.full(e - s, 7, np.int16) for s, e in zip(starts, ends)]
+        shards.append((x, ends, _addresses(
+            [None if i in skip else r for i, r in enumerate(rows)])))
+        checks.append((x, starts, ends, rows, skip))
+        want_total += sum(len(r) for i, r in enumerate(rows)
+                          if i not in skip)
+    assert wire_rows.copy_rows(shards) == want_total
+    for x, starts, ends, rows, skip in checks:
+        for i, (s, e, r) in enumerate(zip(starts, ends, rows)):
+            want = np.full(e - s, 7, np.int16) if i in skip else x[s:e]
+            assert np.array_equal(r, want), (i, s, e)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("few_samples", "samples"), ("addresses", "addresses"),
+    ("decreasing", "decreasing")])
+def test_copy_rows_bad_input_raises(bad, match):
+    x = np.arange(100, dtype=np.int16)
+    ends = np.array([40, 100], np.int64)
+    rows = [np.empty(40, np.int16), np.empty(60, np.int16)]
+    addrs = _addresses(rows)
+    if bad == "few_samples":
+        x = x[:99]
+    elif bad == "addresses":
+        addrs = addrs[:1]
+    else:
+        ends = np.array([60, 40], np.int64)
+    with pytest.raises(ValueError, match=match):
+        wire_rows.copy_rows([(x, ends, addrs)])
+
+
+# The bucket floor of tests/test_torch_config.py: TEXTS share one bucket,
+# so the rows beside the one run again go through the native copy.
+ONE_BUCKET = {"U": 16, "R": 8, "FD": 4, "WREG": 32768, "SMAX": 65536,
+              "CONTW": 16384, "WIN": 2048, "CFMAX": 1024}
+
+
+def _python_drain(trimmed, spans):
+    """The drain as a plain loop: each row's samples sliced out of its
+    shard's host buffer, or the output of its run again, and each text
+    its rows joined."""
+    n_rows, per_bucket = trimmed
+    rows = [None] * n_rows
+    for idxs, (shards, wide) in per_bucket:
+        slot = 0
+        for host, _, _, ends in shards:
+            start = 0
+            for end in ends.tolist():
+                rows[idxs[slot]] = (wide[slot] if slot in wide
+                                    else host[start:end])
+                start = end
+                slot += 1
+    return [np.concatenate(rows[s:e]) for s, e in spans]
+
+
+def test_serving_without_codec_equals_python_copy_and_oracle(db,
+                                                            monkeypatch):
+    from ctts_tpu_torch.config import config_defaults
+    from ctts_tpu_torch.parallel.batch import BatchSynthesizer
+    from ctts_tpu_torch.plan.compiler import compile_plan
+    from ctts_tpu_torch.synth.oracle import execute_plan_oracle
+
+    drained = []
+    drain, widen = BatchSynthesizer._drain, BatchSynthesizer._widen
+
+    def record(self, trimmed, spans=None):
+        outs = drain(self, trimmed, spans)
+        drained.append((trimmed, spans, outs))
+        return outs
+
+    def widen_first(self, handle, slots):
+        # Slot 0 of every bucket runs again, as an overflowing row would.
+        return widen(self, handle, sorted(set(slots) | {0}))
+
+    monkeypatch.setattr(BatchSynthesizer, "_drain", record)
+    monkeypatch.setattr(BatchSynthesizer, "_widen", widen_first)
+    cfg = config_defaults()
+    bs = BatchSynthesizer(db, cfg, wire=False, device=CPU,
+                          dims_floor=ONE_BUCKET)
+    timing.disable()
+    timing.reset()
+    timing.enable()
+    try:
+        got = bs.synthesize(TEXTS)
+    finally:
+        timing.disable()
+    snap = timing.snapshot()
+    timing.reset()
+    (trimmed, spans, outs), = drained
+    assert outs is got
+    assert len(trimmed[1]) == 1                      # one bucket
+    assert max(e - s for s, e in spans) > 1          # a text of rows
+    wide = [src for _, (_, w) in trimmed[1] for src in w.values()]
+    assert wide
+    for t, g, w in zip(TEXTS, got, _python_drain(trimmed, spans)):
+        assert g.dtype == np.int16 and g.flags.owndata, t
+        assert np.array_equal(g, w), t
+        ref = execute_plan_oracle(compile_plan(db, t, cfg, None, 1.0), db)
+        assert g.shape == ref.shape, t
+        assert int(np.abs(g.astype(np.int32) - ref).max()) <= 2, t
+    assert {"drain.raw", "drain.rows"} <= {s.name for s in snap["spans"]}
+    marks = {}
+    for m in snap["marks"]:
+        marks[m.name] = marks.get(m.name, 0) + m.n
+    assert marks["raw.samples"] == sum(len(g) for g in got)
+    assert marks["raw.native"] == marks["raw.samples"] - sum(
+        len(w) for w in wide) > 0
+    assert "decode.samples" not in marks
